@@ -1,0 +1,87 @@
+"""Weight bridge: a ``skix`` flax variables tree → a PyTorch ``state_dict``.
+
+The port's modules carry the flax names (``aggregator.frame_block_0.attn.qkv``,
+``q_norm``, ``ls1.gamma``, ``camera_head.trunk_0`` …), so the bridge is a rule
+per leaf, not a name table:
+
+- a Dense ``kernel`` (in, out) becomes ``weight`` (out, in);
+- a Conv ``kernel`` HWIO becomes ``weight`` OIHW;
+- a LayerNorm ``scale`` becomes ``weight``; ``bias`` stays ``bias``;
+- every other leaf (``camera_token``, ``register_token``,
+  ``empty_pose_tokens``, ``gamma``) is copied as it is.
+
+The tree comes as nested dicts of arrays (``{"params": {...}}`` or the
+``params`` subtree itself) or as the flat ``"params/a/b/kernel"`` npz that
+``skix.pipelines.videopose3d.save_checkpoint`` writes. Reading an npz needs
+numpy only, so a machine without JAX loads a skix checkpoint.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+
+def load_flat_npz(path: str | Path) -> dict[str, np.ndarray]:
+    """The ``"params/a/b/kernel"`` arrays of a skix checkpoint npz."""
+    with np.load(path, allow_pickle=False) as z:
+        return {k: np.asarray(z[k]) for k in z.files}
+
+
+def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested dicts → ``{"a/b/kernel": array}``."""
+    flat: dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            flat.update(flatten_tree(v, key))
+        else:
+            flat[key] = np.asarray(v)
+    return flat
+
+
+def _torch_leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+    if name == "kernel":
+        if arr.ndim == 2:
+            return "weight", arr.T
+        if arr.ndim == 4:
+            return "weight", arr.transpose(3, 2, 0, 1)
+        raise ValueError(f"kernel of rank {arr.ndim} has no rule")
+    if name == "scale":
+        return "weight", arr
+    return name, arr
+
+
+def flax_to_state_dict(variables: Mapping[str, Any] | str | Path
+                       ) -> dict[str, torch.Tensor]:
+    """Convert a flax variables tree (nested dicts or a checkpoint npz path)
+    into a float32 ``state_dict`` on the CPU."""
+    if isinstance(variables, (str, Path)):
+        flat = load_flat_npz(variables)
+    else:
+        flat = flatten_tree(variables)
+    sd: dict[str, torch.Tensor] = {}
+    for key, arr in flat.items():
+        parts = key.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        leaf, value = _torch_leaf(parts[-1], np.asarray(arr, np.float32))
+        sd[".".join(parts[:-1] + [leaf])] = torch.tensor(value)
+    return sd
+
+
+def load_into(module: torch.nn.Module, state_dict: Mapping[str, torch.Tensor]
+              ) -> list[str]:
+    """Copy ``state_dict`` into ``module`` (each tensor cast to its
+    parameter's dtype and device). Every parameter of the module must be
+    present; keys the module does not have are returned, as flax ``apply``
+    ignores them (e.g. the DPT heads of a full VGGT checkpoint)."""
+    missing, unexpected = module.load_state_dict(dict(state_dict),
+                                                 strict=False)
+    if missing:
+        raise KeyError(f"checkpoint lacks {len(missing)} parameters, "
+                       f"e.g. {missing[:5]}")
+    return list(unexpected)

@@ -1,0 +1,261 @@
+"""Transformer building blocks shared by the VGGT model family.
+
+Port of ``skix/models/layers.py``: pre-LN ``Block`` with LayerScale, QK-norm
+and 2D rope, ``Mlp``, ``PatchEmbed`` and the 2D rope itself. Submodules
+carry the flax names (``attn.qkv``, ``q_norm``, ``ls1.gamma``, …), so
+``skix_torch.convert`` maps a skix variables tree onto them leaf by leaf.
+
+Flax's ``dtype`` semantics are kept. Parameters are float32; a ``Dense``
+or ``PatchEmbed`` with ``dtype=bfloat16`` casts its input and weights to
+bf16 and returns bf16 (:func:`cast_to_compute_dtype` stores those
+weights in bf16 once, with the same values). ``LayerNorm`` computes its
+statistics in f32 as E[x²] − E[x]² and returns ``dtype`` (or f32 when
+``dtype`` is None). ``LayerScale`` multiplies by an f32 gamma, so a bf16
+branch re-enters an f32 residual stream, as in the flax blocks.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from skix_torch.ops.attention import flash_attention
+
+
+# --------------------------------------------------------------------------
+# 2D rotary position embedding
+# --------------------------------------------------------------------------
+def make_grid_positions(h: int, w: int) -> np.ndarray:
+    """(h·w, 2) array of (y, x) patch coordinates."""
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    return np.stack([ys.ravel(), xs.ravel()], axis=-1).astype(np.int32)
+
+
+def _rope_1d(x, positions, base_freq: float):
+    """1D rotary embedding on ``x (..., N, d)`` with integer ``positions
+    (..., N)``, rotate-half convention."""
+    d = x.shape[-1]
+    exponents = torch.arange(0, d, 2, dtype=torch.float32,
+                             device=x.device) / d
+    inv_freq = 1.0 / (base_freq ** exponents)
+    angles = positions[..., None].to(torch.float32) * inv_freq
+    angles = torch.cat([angles, angles], dim=-1)
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    rotated = torch.cat([-x2, x1], dim=-1)
+    return x * torch.cos(angles).to(x.dtype) + rotated * torch.sin(angles).to(x.dtype)
+
+
+def rope_2d(x, pos, base_freq: float = 100.0):
+    """2D rope: ``x (B, H, N, D)``, ``pos (B, N, 2)`` (y, x) integer coords;
+    y rotates the first D/2 features, x the second D/2. The model applies
+    it through the attention kernel's tables
+    (:func:`skix_torch.ops.attention.rope_2d_tables`), which equal it."""
+    half = x.shape[-1] // 2
+    out_y = _rope_1d(x[..., :half], pos[..., 0][:, None, :], base_freq)
+    out_x = _rope_1d(x[..., half:], pos[..., 1][:, None, :], base_freq)
+    return torch.cat([out_y, out_x], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# flax-semantics layers
+# --------------------------------------------------------------------------
+class Dense(nn.Linear):
+    """``flax.linen.Dense``: input, weight and bias cast to ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+class LayerNorm(nn.Module):
+    """``flax.linen.LayerNorm`` over the last axis: f32 statistics with
+    var = max(E[x²] − E[x]², 0), output cast to ``dtype`` (None → f32)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5,
+                 dtype: Optional[torch.dtype] = None,
+                 use_scale: bool = True, use_bias: bool = True):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim)) if use_scale else None
+        self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
+
+    def forward(self, x):
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=-1, keepdim=True)
+        mean2 = (xf * xf).mean(dim=-1, keepdim=True)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = (xf - mean) * mul
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(self.dtype or torch.float32)
+
+
+class Mlp(nn.Module):
+    def __init__(self, in_features: int, hidden_features: int,
+                 out_features: Optional[int] = None, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Dense(in_features, hidden_features, bias, dtype)
+        self.fc2 = Dense(hidden_features, out_features or in_features, bias,
+                         dtype)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))     # erf GELU
+
+
+class LayerScale(nn.Module):
+    def __init__(self, dim: int, init_values: float = 1e-5):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_values)))
+
+    def forward(self, x):
+        return x * self.gamma
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention with optional QK-LayerNorm; the core runs through
+    :func:`skix_torch.ops.attention.flash_attention`. ``rope`` is a
+    ``(cos, sin)`` pair of (N, head_dim) tables shared by every batch row
+    (the VGGT layouts): the kernel applies it to q and k."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 proj_bias: bool = True, qk_norm: bool = False,
+                 ln_eps: float = 1e-5, dtype: torch.dtype = torch.float32,
+                 attn_fixed_max: Optional[float] = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.attn_fixed_max = attn_fixed_max
+        hd = dim // num_heads
+        self.qkv = Dense(dim, 3 * dim, qkv_bias, dtype)
+        if qk_norm:
+            self.q_norm = LayerNorm(hd, ln_eps, dtype)
+            self.k_norm = LayerNorm(hd, ln_eps, dtype)
+        else:
+            self.q_norm = self.k_norm = None
+        self.proj = Dense(dim, dim, proj_bias, dtype)
+
+    def forward(self, x, rope=None):
+        B, N, C = x.shape
+        hd = C // self.num_heads
+        qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, hd)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        if self.q_norm is not None:
+            q = self.q_norm(q)
+            k = self.k_norm(k)
+        cos, sin = rope if rope is not None else (None, None)
+        out = flash_attention(q, k, v, fixed_max=self.attn_fixed_max,
+                              rope_cos=cos, rope_sin=sin)
+        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block with LayerScale."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, proj_bias: bool = True,
+                 ffn_bias: bool = True, qk_norm: bool = False,
+                 init_values: Optional[float] = None, ln_eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32,
+                 attn_fixed_max: Optional[float] = None):
+        super().__init__()
+        self.norm1 = LayerNorm(dim, ln_eps, dtype)
+        self.attn = MultiHeadAttention(dim, num_heads, qkv_bias, proj_bias,
+                                       qk_norm, ln_eps, dtype, attn_fixed_max)
+        self.norm2 = LayerNorm(dim, ln_eps, dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), bias=ffn_bias, dtype=dtype)
+        if init_values:
+            self.ls1 = LayerScale(dim, init_values)
+            self.ls2 = LayerScale(dim, init_values)
+        else:
+            self.ls1 = self.ls2 = None
+
+    def forward(self, x, rope=None):
+        h = self.attn(self.norm1(x), rope)
+        if self.ls1 is not None:
+            h = self.ls1(h)
+        x = x + h
+        h = self.mlp(self.norm2(x))
+        if self.ls2 is not None:
+            h = self.ls2(h)
+        return x + h
+
+
+class PatchEmbed(nn.Module):
+    """Patchify ``(B, H, W, 3)`` → ``(B, h·w, C)``: the stride-p, p×p
+    ``proj`` convolution, computed as one product of the (py, px, c)
+    patch vectors with the flattened kernel (a plain float32 matmul on
+    the card, where a float32 convolution would run in TF32)."""
+
+    def __init__(self, patch_size: int = 14, embed_dim: int = 1024,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.patch_size = patch_size
+        self.dtype = dtype
+        self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, x):
+        B, H, W, Cin = x.shape
+        p = self.patch_size
+        gh, gw = H // p, W // p
+        patches = (x[:, :gh * p, :gw * p].reshape(B, gh, p, gw, p, Cin)
+                   .permute(0, 1, 3, 2, 4, 5).reshape(B, gh * gw, p * p * Cin))
+        w = self.proj.weight.permute(0, 2, 3, 1).reshape(-1, p * p * Cin)
+        return F.linear(patches.to(self.dtype), w.to(self.dtype),
+                        self.proj.bias.to(self.dtype))
+
+
+def cast_to_compute_dtype(module: nn.Module) -> nn.Module:
+    """Store the weights of every ``Dense`` and ``PatchEmbed`` whose compute
+    dtype is not float32 in that dtype. Their forward casts the weights to
+    it anyway, so the outputs do not change; the weights take half the
+    memory and are not cast again on every call."""
+    for m in module.modules():
+        target = m.proj if isinstance(m, PatchEmbed) else m
+        if isinstance(m, (Dense, PatchEmbed)) and m.dtype != torch.float32:
+            for name, prm in list(target.named_parameters(recurse=False)):
+                prm.data = prm.data.to(m.dtype)
+    return module
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator=None):
+    """flax's default kernel init: truncated normal (±2σ) with variance
+    1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
+
+def init_like_flax(module: nn.Module, generator=None) -> nn.Module:
+    """Re-initialize ``module`` with the distributions flax's ``init`` draws
+    from (not its numbers): Dense and Conv kernels LeCun-normal, biases 0,
+    LayerNorm scale 1 and bias 0. Model-specific parameters (tokens,
+    LayerScale gammas) are set by the model's own ``init_weights``."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Linear):
+                lecun_normal_(m.weight, m.in_features, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Conv2d):
+                lecun_normal_(m.weight, m.weight[0].numel(), generator)
+                m.bias.zero_()
+            elif isinstance(m, LayerNorm):
+                if m.weight is not None:
+                    m.weight.fill_(1.0)
+                if m.bias is not None:
+                    m.bias.zero_()
+    return module
