@@ -5,10 +5,19 @@ The port's modules carry the flax names (``aggregator.frame_block_0.attn.qkv``,
 per leaf, not a name table:
 
 - a Dense ``kernel`` (in, out) becomes ``weight`` (out, in);
-- a Conv ``kernel`` HWIO becomes ``weight`` OIHW;
-- a LayerNorm ``scale`` becomes ``weight``; ``bias`` stays ``bias``;
+- a DenseGeneral ``kernel`` becomes the 2-D ``weight`` of the port's
+  ``Dense``: (C, H, hd) in-projections → (H·hd, C); the (H, hd, C) kernel of
+  a module named ``out`` (the memory tracker's output projection) →
+  (C, H·hd); its (H, hd) ``bias`` becomes (H·hd,);
+- a Conv ``kernel`` HWIO becomes ``weight`` OIHW (a depthwise kernel
+  (kh, kw, 1, C) so becomes torch's (C, 1, kh, kw)); a ConvTranspose
+  kernel takes the same rule, and the port's ``ConvTranspose`` applies it
+  flipped in space, as flax does not flip it;
+- a LayerNorm or GroupNorm ``scale`` becomes ``weight``; ``bias`` stays
+  ``bias``;
 - every other leaf (``camera_token``, ``register_token``,
-  ``empty_pose_tokens``, ``gamma``) is copied as it is.
+  ``empty_pose_tokens``, ``gamma``, ``pos_embed``, ``query_pos``,
+  ``init_boxes``, ``label_embed``, ``null_prompt``) is copied as it is.
 
 The tree comes as nested dicts of arrays (``{"params": {...}}`` or the
 ``params`` subtree itself) or as the flat ``"params/a/b/kernel"`` npz that
@@ -43,15 +52,22 @@ def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndar
     return flat
 
 
-def _torch_leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+def _torch_leaf(name: str, arr: np.ndarray, module: str = ""
+                ) -> tuple[str, np.ndarray]:
     if name == "kernel":
         if arr.ndim == 2:
             return "weight", arr.T
+        if arr.ndim == 3:
+            if module == "out":
+                return "weight", arr.reshape(-1, arr.shape[-1]).T
+            return "weight", arr.reshape(arr.shape[0], -1).T
         if arr.ndim == 4:
             return "weight", arr.transpose(3, 2, 0, 1)
         raise ValueError(f"kernel of rank {arr.ndim} has no rule")
     if name == "scale":
         return "weight", arr
+    if name == "bias" and arr.ndim == 2:
+        return name, arr.reshape(-1)
     return name, arr
 
 
@@ -68,7 +84,8 @@ def flax_to_state_dict(variables: Mapping[str, Any] | str | Path
         parts = key.split("/")
         if parts[0] == "params":
             parts = parts[1:]
-        leaf, value = _torch_leaf(parts[-1], np.asarray(arr, np.float32))
+        leaf, value = _torch_leaf(parts[-1], np.asarray(arr, np.float32),
+                                  parts[-2] if len(parts) > 1 else "")
         sd[".".join(parts[:-1] + [leaf])] = torch.tensor(value)
     return sd
 

@@ -1,7 +1,9 @@
-"""Transformer building blocks shared by the VGGT model family.
+"""Transformer and convolution building blocks shared by the port's models.
 
 Port of ``skix/models/layers.py``: pre-LN ``Block`` with LayerScale, QK-norm
-and 2D rope, ``Mlp``, ``PatchEmbed`` and the 2D rope itself. Submodules
+and 2D rope, ``Mlp``, ``PatchEmbed`` and the 2D rope itself; plus the flax
+layers the SAM3 front path needs (``Conv`` with flax's ``SAME`` padding,
+``ConvTranspose``, ``GroupNorm``). Submodules
 carry the flax names (``attn.qkv``, ``q_norm``, ``ls1.gamma``, …), so
 ``skix_torch.convert`` maps a skix variables tree onto them leaf by leaf.
 
@@ -130,15 +132,20 @@ class MultiHeadAttention(nn.Module):
     """Self-attention with optional QK-LayerNorm; the core runs through
     :func:`skix_torch.ops.attention.flash_attention`. ``rope`` is a
     ``(cos, sin)`` pair of (N, head_dim) tables shared by every batch row
-    (the VGGT layouts): the kernel applies it to q and k."""
+    (the VGGT layouts, the ViT-Det window-local and global grids): the
+    kernel applies it to q and k. ``attn_block`` is skix's explicit tile
+    edge: a sequence of exactly that length is one tile, which sends the
+    call to the single-tile kernel (K2)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  proj_bias: bool = True, qk_norm: bool = False,
                  ln_eps: float = 1e-5, dtype: torch.dtype = torch.float32,
-                 attn_fixed_max: Optional[float] = None):
+                 attn_fixed_max: Optional[float] = None,
+                 attn_block: Optional[int] = None):
         super().__init__()
         self.num_heads = num_heads
         self.attn_fixed_max = attn_fixed_max
+        self.attn_block = attn_block
         hd = dim // num_heads
         self.qkv = Dense(dim, 3 * dim, qkv_bias, dtype)
         if qk_norm:
@@ -157,8 +164,10 @@ class MultiHeadAttention(nn.Module):
             q = self.q_norm(q)
             k = self.k_norm(k)
         cos, sin = rope if rope is not None else (None, None)
+        blk = self.attn_block
         out = flash_attention(q, k, v, fixed_max=self.attn_fixed_max,
-                              rope_cos=cos, rope_sin=sin)
+                              rope_cos=cos, rope_sin=sin, block_q=blk,
+                              block_k_major=blk, block_k=blk)
         return self.proj(out.transpose(1, 2).reshape(B, N, C))
 
 
@@ -170,11 +179,13 @@ class Block(nn.Module):
                  ffn_bias: bool = True, qk_norm: bool = False,
                  init_values: Optional[float] = None, ln_eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32,
-                 attn_fixed_max: Optional[float] = None):
+                 attn_fixed_max: Optional[float] = None,
+                 attn_block: Optional[int] = None):
         super().__init__()
         self.norm1 = LayerNorm(dim, ln_eps, dtype)
         self.attn = MultiHeadAttention(dim, num_heads, qkv_bias, proj_bias,
-                                       qk_norm, ln_eps, dtype, attn_fixed_max)
+                                       qk_norm, ln_eps, dtype, attn_fixed_max,
+                                       attn_block)
         self.norm2 = LayerNorm(dim, ln_eps, dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), bias=ffn_bias, dtype=dtype)
         if init_values:
@@ -218,6 +229,83 @@ class PatchEmbed(nn.Module):
                         self.proj.bias.to(self.dtype))
 
 
+class GroupNorm(nn.Module):
+    """``flax.linen.GroupNorm`` on channels-last input ``(B, ..., C)``: f32
+    statistics per (sample, group) over every non-batch axis, with
+    var = max(E[x²] − E[x]², 0); f32 output."""
+
+    def __init__(self, num_groups: int, dim: int):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = 1e-6          # flax's default
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        B, C, G = x.shape[0], x.shape[-1], self.num_groups
+        xf = x.to(torch.float32).reshape(B, -1, G, C // G)
+        mean = xf.mean(dim=(1, 3), keepdim=True)
+        mean2 = (xf * xf).mean(dim=(1, 3), keepdim=True)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return y.reshape(x.shape) * self.weight + self.bias
+
+
+def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
+    """flax/XLA ``SAME`` padding of one axis: output ceil(n/s), the total
+    pad split with the smaller half first (a stride-2 3×3 conv on an even
+    axis pads (0, 1), not (1, 1))."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Conv2d):
+    """``flax.linen.Conv`` on channels-last input ``(B, H, W, C)``: padding
+    ``"SAME"`` (flax's asymmetric split) or ``"VALID"``, optional feature
+    groups (depthwise). The weight is stored OIHW, as the bridge converts
+    flax's HWIO kernel. A 1×1 stride-1 conv runs as a matrix product."""
+
+    def __init__(self, in_features: int, out_features: int, kernel_size=1,
+                 stride=1, padding: str = "SAME", groups: int = 1):
+        super().__init__(in_features, out_features, kernel_size, stride,
+                         groups=groups)
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding {padding!r}: SAME or VALID")
+        self.same = padding == "SAME"
+
+    def forward(self, x):
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        if kh == kw == sh == sw == 1 and self.groups == 1:
+            return F.linear(x, self.weight[:, :, 0, 0], self.bias)
+        xn = x.permute(0, 3, 1, 2)
+        if self.same:
+            ph = _same_pads(xn.shape[2], kh, sh)
+            pw = _same_pads(xn.shape[3], kw, sw)
+            xn = F.pad(xn, (*pw, *ph))
+        y = F.conv2d(xn, self.weight, self.bias, self.stride, 0, 1,
+                     self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose(nn.Conv2d):
+    """``flax.linen.ConvTranspose`` with kernel == stride (``SAME``), on
+    channels-last input: every input pixel writes one k×k output patch.
+    flax does not flip the kernel (``transpose_kernel=False``), so output
+    offset ``a`` of a patch takes kernel tap ``k−1−a``: the weight (stored
+    OIHW by the bridge's conv rule) is used flipped in space. Computed as
+    one f32 product, with no cuDNN convolution."""
+
+    def __init__(self, in_features: int, out_features: int, kernel_size=2):
+        super().__init__(in_features, out_features, kernel_size,
+                         stride=kernel_size)
+
+    def forward(self, x):
+        B, h, w, _ = x.shape
+        kh, kw = self.kernel_size
+        y = torch.einsum("bijc,ocuv->biujvo", x, self.weight.flip(2, 3))
+        return y.reshape(B, h * kh, w * kw, -1) + self.bias
+
+
 def cast_to_compute_dtype(module: nn.Module) -> nn.Module:
     """Store the weights of every ``Dense`` and ``PatchEmbed`` whose compute
     dtype is not float32 in that dtype. Their forward casts the weights to
@@ -252,6 +340,9 @@ def init_like_flax(module: nn.Module, generator=None) -> nn.Module:
                     m.bias.zero_()
             elif isinstance(m, nn.Conv2d):
                 lecun_normal_(m.weight, m.weight[0].numel(), generator)
+                m.bias.zero_()
+            elif isinstance(m, GroupNorm):
+                m.weight.fill_(1.0)
                 m.bias.zero_()
             elif isinstance(m, LayerNorm):
                 if m.weight is not None:

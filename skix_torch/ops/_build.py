@@ -3,8 +3,8 @@
 Each ``skix_torch/ops/csrc/<name>.cu`` has a plain C interface and compiles
 with ``nvcc`` alone (no PyTorch headers, no ninja) into
 ``skix_torch/_build/lib<name>-<hash>.so``, where the hash covers the
-source and the flags: an edited source builds anew, an unchanged one is
-reused. ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory,
+source, the shared headers (``csrc/*.cuh``) and the flags: an edited source
+builds anew, an unchanged one is reused. ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory,
 spills) is kept beside the library as ``<name>-<hash>.log``. A failed
 build raises; nothing falls back to another path.
 """
@@ -40,6 +40,8 @@ def nvcc_path() -> str:
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     stem = f"{name}-{digest.hexdigest()[:12]}"
     return BUILD_DIR / f"lib{stem}.so", BUILD_DIR / f"{stem}.log"
 

@@ -1,0 +1,126 @@
+// Pieces shared by the attention kernels of skix_torch (flash_fwd.cu,
+// flash_fwd_single_tile.cu): dtype conversions, the rounding helpers that
+// repeat the TPU kernels' casts, the tile loader with the fused rotate-half
+// rope, half-warp reductions and the output-column map of the P.V loops.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace skix {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T and read back as f32
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// Load rows [row0, row0 + R) of one (S, D) head slice into dst[d * LD + r],
+// transposed and as f32, zero past `rows`, with all NT threads of the block.
+// With rope: x*cos + rot(x)*sin in f32, rot the rotate-half within each D/2
+// half (y[j] = -x[j + D/4], y[j + D/4] = x[j]). With `mul_on`: times mul.
+// Either way the result is rounded to T, as the TPU kernels cast roped or
+// scaled tiles back to the input type. The _rn intrinsics keep nvcc from
+// fusing the products into FMAs, so the f32 values equal the plain
+// version's.
+template <typename T, int D, int R, int LD, int NT>
+__device__ __forceinline__ void load_rows_t(float* __restrict__ dst, const T* __restrict__ src,
+                                            long long stride_s, int row0, int rows,
+                                            const float* __restrict__ cos,
+                                            const float* __restrict__ sin, bool mul_on,
+                                            float mul) {
+  constexpr int Q4 = D / 4;
+  for (int idx = threadIdx.x; idx < R * D; idx += NT) {
+    const int r = idx / D, d = idx % D;
+    float x = 0.f;
+    if (r < rows) {
+      const T* row = src + (long long)(row0 + r) * stride_s;
+      x = to_f32(row[d]);
+      const bool rounded = cos != nullptr || mul_on;
+      if (cos != nullptr) {
+        const bool lo = (d % (D / 2)) < Q4;
+        const float partner = to_f32(row[lo ? d + Q4 : d - Q4]);
+        const float rot = lo ? -partner : partner;
+        const long long t = (long long)(row0 + r) * D + d;
+        x = __fadd_rn(__fmul_rn(x, cos[t]), __fmul_rn(rot, sin[t]));
+      }
+      if (mul_on) x = __fmul_rn(x, mul);
+      if (rounded) x = round_to<T>(x);
+    }
+    dst[d * LD + r] = x;
+  }
+}
+
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// The output columns of the P.V loops: the 16 column groups of a row group
+// split the D columns, D/16 each. D = 32: two neighbours (cg*2, cg*2 + 1);
+// D = 64, 128: four neighbours in each 64-column chunk (nc*64 + cg*4 + j),
+// so the v tile is read as float4.
+template <int D> __device__ __forceinline__ int out_col(int cg, int j) {
+  if constexpr (D == 32) {
+    return cg * 2 + j;
+  } else {
+    return (j / 4) * 64 + cg * 4 + (j % 4);
+  }
+}
+
+// acc[i][j] += a[i] * Vrow[out_col<D>(cg, j)] for NR rows, reading the v
+// row of the shared tile in the widest load the column map allows.
+template <int D, int NR>
+__device__ __forceinline__ void pv_update(float (&acc)[NR][D / 16], const float (&a)[NR],
+                                          const float* __restrict__ vrow, int cg) {
+  if constexpr (D == 32) {
+    const float2 c = *reinterpret_cast<const float2*>(&vrow[cg * 2]);
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      acc[i][0] = fmaf(a[i], c.x, acc[i][0]);
+      acc[i][1] = fmaf(a[i], c.y, acc[i][1]);
+    }
+  } else {
+#pragma unroll
+    for (int nc = 0; nc < D / 64; ++nc) {
+      const float4 c = *reinterpret_cast<const float4*>(&vrow[nc * 64 + cg * 4]);
+      const float cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+      for (int i = 0; i < NR; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][nc * 4 + j] = fmaf(a[i], cv[j], acc[i][nc * 4 + j]);
+    }
+  }
+}
+
+}  // namespace skix

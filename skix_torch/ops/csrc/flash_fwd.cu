@@ -3,8 +3,10 @@
 // Replaces the TPU kernel K1, `_fwd_kernel` in skix/ops/attention.py:184:
 // softmax(scale * Q K^T) V with an online softmax in base 2, f32 statistics
 // (m, l) and f32 accumulator, a ragged-edge mask, an optional fixed logit
-// bound (no running max) and an optional rotate-half rope fused from
-// (S, D) cos/sin tables.
+// bound (no running max), an optional rotate-half rope fused from (S, D)
+// cos/sin tables, and an optional base-2 log-partition output
+// lse = m + log2(l) (0 where l == 0), as the TPU kernel's residual store
+// (attention.py:297-305) computes it, one f32 per row.
 //
 // Design. One CTA of 256 threads per (64-row q tile, head, batch). The CTA
 // loops over 64-row kv tiles in shared memory. Every tile is held as f32 in
@@ -15,19 +17,22 @@
 // columns 4*(t%16)..+3; the 16 threads of one row group are one half-warp,
 // so row max and row sum are five shuffles. P is rounded to v's type,
 // written transposed to shared memory, and P.V runs as a second f32 FMA
-// loop into a 4 x (D/16) accumulator per thread.
+// loop into a 4 x (D/16) accumulator per thread (out_col: D 32, 64, 128).
+// Strides are per (batch, head, row), so a q shared by every batch row (the
+// memory tracker's first layer) comes in with batch stride 0, uncopied.
 //
-// Bound. At the VGGT shapes (S = 1374 and 2748, D = 64) the work is
-// 4*B*H*Sq*Sk*D operations on a few MB of input, so the kernel is bound by
-// operations. These loops run on the f32 FMA units, not the tensor cores:
-// the simple first version. wgmma with TMA-fed tiles is the later step.
+// Bound. At the VGGT shapes (S = 1374 and 2748, D = 64), the ViT-Det global
+// blocks (S = 5184) and the memory tracker (15876 x 63504) the work is
+// 4*B*H*Sq*Sk*D operations on at most a few hundred MB of input, so the
+// kernel is bound by operations. These loops run on the f32 FMA units, not
+// the tensor cores: the simple first version. wgmma with TMA-fed tiles is
+// the later step.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace skix;
 
 constexpr int BQ = 64;        // q rows per CTA
 constexpr int BK = 64;        // kv rows per tile
@@ -39,80 +44,20 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;        // (B, H, Sq) f32, contiguous, or null
   const float* cos;  // (Sq, D) or null
   const float* sin;
-  int Sq, Sk;
+  int H, Sq, Sk;
   long long sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos;
   float scale_log2;  // sm_scale * log2(e), rounded to f32
   int fixed;         // fixed-max mode
   float max_log2;    // fixed_max * log2(e), rounded to f32
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and read back as f32
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-// Load rows [row0, row0 + 64) of one (S, D) head slice into dst[d * LT + r],
-// transposed and as f32, zero past `rows`. With rope: x*cos + rot(x)*sin in
-// f32, rot the rotate-half within each D/2 half (y[j] = -x[j + D/4],
-// y[j + D/4] = x[j]). With `mul`: times mul. Either way the result is
-// rounded to T, as the TPU kernel casts roped or scaled tiles back to the
-// input type. The _rn intrinsics keep nvcc from fusing the products into
-// FMAs, so the f32 values equal the plain version's.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows_t(float* __restrict__ dst, const T* __restrict__ src,
-                                            long long stride_s, int row0, int rows,
-                                            const float* __restrict__ cos,
-                                            const float* __restrict__ sin, bool mul_on,
-                                            float mul) {
-  constexpr int Q4 = D / 4;
-  for (int idx = threadIdx.x; idx < BQ * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    float x = 0.f;
-    if (r < rows) {
-      const T* row = src + (long long)(row0 + r) * stride_s;
-      x = to_f32(row[d]);
-      const bool rounded = cos != nullptr || mul_on;
-      if (cos != nullptr) {
-        const bool lo = (d % (D / 2)) < Q4;
-        const float partner = to_f32(row[lo ? d + Q4 : d - Q4]);
-        const float rot = lo ? -partner : partner;
-        const long long t = (long long)(row0 + r) * D + d;
-        x = __fadd_rn(__fmul_rn(x, cos[t]), __fmul_rn(rot, sin[t]));
-      }
-      if (mul_on) x = __fmul_rn(x, mul);
-      if (rounded) x = round_to<T>(x);
-    }
-    dst[d * LT + r] = x;
-  }
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   constexpr int LV = D + 4;     // row length (floats) of the v tile
-  constexpr int NC = D / 64;    // 4-column chunks of the output per thread
+  constexpr int CPT = D / 16;   // output columns per thread
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;             // [D][LT]  q tile, transposed
   float* Kt = Qt + D * LT;      // [D][LT]  k tile, transposed
@@ -127,21 +72,22 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   const T* vh = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
   T* oh = static_cast<T*>(p.o) + b * p.sob + h * p.soh;
 
-  load_rows_t<T, D>(Qt, qh, p.sqs, q0, min(BQ, p.Sq - q0), p.cos, p.sin, true, p.scale_log2);
+  load_rows_t<T, D, BQ, LT, NT>(Qt, qh, p.sqs, q0, min(BQ, p.Sq - q0), p.cos, p.sin, true,
+                                p.scale_log2);
 
-  float m[4], l[4], acc[4][4 * NC];
+  float m[4], l[4], acc[4][CPT];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = p.fixed ? p.max_log2 : -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
   }
 
   for (int k0 = 0; k0 < p.Sk; k0 += BK) {
     const int kr = min(BK, p.Sk - k0);
     __syncthreads();  // the previous tile's readers are done
-    load_rows_t<T, D>(Kt, kh, p.sks, k0, kr, p.cos, p.sin, false, 1.f);
+    load_rows_t<T, D, BK, LT, NT>(Kt, kh, p.sks, k0, kr, p.cos, p.sin, false, 1.f);
     for (int idx = tid; idx < BK * D; idx += NT) {
       const int r = idx / D, d = idx % D;
       Vs[r * LV + d] = r < kr ? to_f32(vh[(long long)(k0 + r) * p.svs + d]) : 0.f;
@@ -193,7 +139,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
       l[i] = alpha * l[i] + rs;
       if (!p.fixed) {
 #pragma unroll
-        for (int c = 0; c < 4 * NC; ++c) acc[i][c] *= alpha;
+        for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
       }
     }
     // p rounded to v's type, stored transposed: Pt[col][row]
@@ -206,19 +152,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
+    for (int kk = 0; kk < kr; ++kk) {
       const float4 a = *reinterpret_cast<const float4*>(&Pt[kk * LT + rg * 4]);
       const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int nc = 0; nc < NC; ++nc) {
-        const float4 c = *reinterpret_cast<const float4*>(&Vs[kk * LV + nc * 64 + cg * 4]);
-        const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][nc * 4 + j] = fmaf(av[i], cv[j], acc[i][nc * 4 + j]);
-      }
+      pv_update<D, 4>(acc, av, &Vs[kk * LV], cg);
     }
   }
 
@@ -229,22 +166,29 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
     const float inv_l = l[i] == 0.f ? 1.f : l[i];
     T* orow = oh + (long long)row * p.sos;
 #pragma unroll
-    for (int nc = 0; nc < NC; ++nc)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        orow[nc * 64 + cg * 4 + j] = from_f32<T>(acc[i][nc * 4 + j] / inv_l);
+    for (int j = 0; j < CPT; ++j) orow[out_col<D>(cg, j)] = from_f32<T>(acc[i][j] / inv_l);
+    if (p.lse != nullptr && cg == 0)
+      p.lse[((long long)b * p.H + h) * p.Sq + row] = l[i] > 0.f ? m[i] + log2f(l[i]) : 0.f;
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const Params& p, int B, int H, cudaStream_t stream) {
+cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * (2 * D * LT + BK * (D + 4) + BK * LT);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, H, B);
+  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
   flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const Params& p, int B, int D, cudaStream_t s) {
+  if (D == 32) return launch<T, 32>(p, B, s);
+  if (D == 64) return launch<T, 64>(p, B, s);
+  if (D == 128) return launch<T, 128>(p, B, s);
+  return static_cast<cudaError_t>(1000);
 }
 
 }  // namespace
@@ -252,24 +196,22 @@ cudaError_t launch(const Params& p, int B, int H, cudaStream_t stream) {
 extern "C" {
 
 // q, k, v, o: (B, H, S, D) with element strides (b, h, s) and unit stride
-// along D; dtype 0 = float32, 1 = bfloat16; D 64 or 128. Returns a
-// cudaError_t (0 on success); 1000 for arguments the kernel does not take.
-int skix_flash_fwd(const void* q, const void* k, const void* v, void* o, const float* cos,
-                   const float* sin, int B, int H, int Sq, int Sk, int D, int dtype,
-                   long long sqb, long long sqh, long long sqs, long long skb, long long skh,
-                   long long sks, long long svb, long long svh, long long svs, long long sob,
-                   long long soh, long long sos, float scale_log2, int fixed, float max_log2,
-                   void* stream) {
+// along D; lse: null or a contiguous (B, H, Sq) f32 output; dtype 0 =
+// float32, 1 = bfloat16; D 32, 64 or 128. Returns a cudaError_t (0 on
+// success); 1000 for arguments the kernel does not take.
+int skix_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                   const float* cos, const float* sin, int B, int H, int Sq, int Sk, int D,
+                   int dtype, long long sqb, long long sqh, long long sqs, long long skb,
+                   long long skh, long long sks, long long svb, long long svh, long long svs,
+                   long long sob, long long soh, long long sos, float scale_log2, int fixed,
+                   float max_log2, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B > 65535 || H > 65535) return 1000;
   if ((cos == nullptr) != (sin == nullptr)) return 1000;
-  const Params p{q,   k,   v,   o,   cos, sin,        Sq,    Sk,
-                 sqb, sqh, sqs, skb, skh, sks,        svb,   svh,
-                 svs, sob, soh, sos, scale_log2, fixed, max_log2};
+  const Params p{q,   k,   v,   o,   lse, cos, sin, H,   Sq,         Sk,    sqb,     sqh,
+                 sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos, scale_log2, fixed, max_log2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch<float, 64>(p, B, H, s);
-  if (dtype == 0 && D == 128) return launch<float, 128>(p, B, H, s);
-  if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(p, B, H, s);
-  if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(p, B, H, s);
+  if (dtype == 0) return launch_d<float>(p, B, D, s);
+  if (dtype == 1) return launch_d<__nv_bfloat16>(p, B, D, s);
   return 1000;
 }
 

@@ -1,0 +1,221 @@
+"""Stage CLI: front-view open-vocabulary tracking (person + snow).
+
+Port of ``skix/pipelines/prepare_front_results.py``: build the SAM3 video
+predictor (``Sam3Detector`` + ``MaskMemoryTracker`` masklet propagation),
+start a session on each front video, add a text prompt, propagate, save
+every frame's outputs, reset, repeat for the next prompt, close. Outputs
+per prompt, as skix writes them:
+
+- ``<prompt>_masks.npy (T, K, h, w) bool`` (``save_mask_size`` rescales,
+  nearest; default keeps the video resolution);
+- ``<prompt>_bboxes.npy (T, K, 4)`` xyxy in frame pixels;
+- ``<prompt>_scores.npy``, ``<prompt>_tracker_scores.npy``,
+  ``<prompt>_active.npy``, ``<prompt>_obj_ids.npy``;
+- ``person_bboxes.npy (T, 4)`` + ``person_valid.npy``, the best-track path
+  that the front_side stage reads;
+- ``front_summary.json`` under ``out_root``; the port adds
+  ``front_timing.json`` (per-frame ``detector``/``tracker``/``outputs``
+  spans).
+
+Without checkpoints the stage runs, loudly, with seeded random weights and
+hash prompt embeddings (skix's smoke mode). The compact model, the CLIP
+tower and ``overlay_video`` come with later slices and raise.
+:func:`process_frames` is :func:`process_video` without the decode, for
+callers that hold the frames already.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from skix_torch.config import cli_main, iter_person_dirs
+from skix_torch.utils.device import resolve_device
+from skix_torch.utils.profiling import StageTimer
+
+log = logging.getLogger(__name__)
+
+
+def _load_into(module, path, what: str, seed: int):
+    """Weights of ``module`` from the skix checkpoint npz at ``path``, or
+    seeded random ones (smoke mode)."""
+    from skix_torch.convert import flax_to_state_dict, load_into
+
+    dev = next(module.parameters()).device
+    if path and Path(path).exists():
+        with torch.no_grad():
+            load_into(module, flax_to_state_dict(path))
+    else:
+        if path:
+            log.warning("%s checkpoint %s missing — random init", what, path)
+        module.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    return module.eval()
+
+
+def _build_sam3(cfg, device, timer=None):
+    """Sam3Detector + masklet tracker predictor, on ``device``."""
+    from skix_torch.tracking.masklet import MaskletConfig
+    from skix_torch.tracking.memory_tracker import MaskMemoryTracker
+    from skix_torch.tracking.sam3_detector import Sam3Detector
+    from skix_torch.tracking.session import VideoPredictor
+
+    det_kw = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in dict(cfg.get("detector", {}) or {}).items()}
+    trk_kw = dict(cfg.get("tracker", {}) or {})
+    with torch.device("meta"):
+        det = Sam3Detector.full_size(**det_kw)
+        trk = MaskMemoryTracker(**trk_kw)
+    det, trk = det.to_empty(device=device), trk.to_empty(device=device)
+    ckpt = cfg.get("detector_checkpoint")
+    if not (ckpt and Path(ckpt).exists()):
+        log.warning("SMOKE MODE: no detector checkpoint — the %d-px "
+                    "Sam3Detector runs with RANDOM weights; detections are "
+                    "meaningless until a converted checkpoint is configured",
+                    det.img_size)
+    _load_into(det, ckpt, "detector", seed=0)
+    _load_into(trk, cfg.get("tracker_checkpoint"), "tracker", seed=1)
+
+    mcfg = MaskletConfig(
+        max_objects=int(cfg.get("max_objects", 16)),
+        max_dets=int(cfg.get("max_dets", 16)),
+        score_threshold_detection=float(cfg.get("det_score_threshold", 0.5)),
+        new_det_thresh=float(cfg.get("new_det_thresh", 0.5)),
+        assoc_iou_thresh=float(cfg.get("assoc_iou_thresh", 0.5)),
+        trk_assoc_iou_thresh=float(cfg.get("trk_assoc_iou_thresh", 0.5)),
+        hotstart_delay=int(cfg.get("hotstart_delay", 0)),
+        occlusion_suppress_iou=float(cfg.get("occlusion_suppress_iou", 0.0)))
+    clip_cfg = cfg.get("clip", {}) or {}
+    clip_ckpt = clip_cfg.get("checkpoint") if clip_cfg else None
+    if clip_ckpt and Path(clip_ckpt).exists():
+        raise NotImplementedError(
+            "the CLIP text tower comes with its checkpoint's slice of the "
+            "port; set clip.checkpoint: null for hash prompt embeddings")
+    log.warning("SMOKE MODE: no CLIP checkpoint — text prompts use the "
+                "deterministic hash embedding, not the CLIP tower")
+    return VideoPredictor(det, trk, masklet_cfg=mcfg, smoke_prompts=True,
+                          timer=timer)
+
+
+def build_predictor(cfg, device=None, timer=None):
+    model = str(cfg.get("model", "sam3"))
+    if model == "sam3":
+        return _build_sam3(cfg, device or resolve_device(cfg.get("device")),
+                           timer)
+    if model == "compact":
+        raise NotImplementedError(
+            "model 'compact' (DetrDetector, boxes only) comes with its own "
+            "slice of the port")
+    raise ValueError(f"unknown model '{model}' (sam3 | compact)")
+
+
+def _resize_masks(masks, size):
+    """(T, K, H, W) bool → nearest-resized (T, K, h, w) bool."""
+    if size is None:
+        return masks
+    from skix_torch.utils.image import resize
+
+    h, w = (int(size), int(size)) if np.isscalar(size) else map(int, size)
+    T, K = masks.shape[:2]
+    out = resize(torch.as_tensor(np.asarray(masks, np.float32)),
+                 (T, K, h, w), "nearest")
+    return out.numpy() > 0.5
+
+
+def process_frames(pred, frames: np.ndarray, out_dir: Path, cfg) -> dict:
+    """Track every prompt of ``cfg.prompts`` through ``frames (T, H, W, 3)``
+    uint8 and write the stage's files into ``out_dir``."""
+    sid = pred.start_session(frames)
+    report = {}
+    try:
+        for prompt in list(cfg.get("prompts", ["person", "snow"])):
+            pred.add_prompt(sid, prompt)
+            boxes, scores, active, ids, masks, tscores = [], [], [], [], [], []
+            for out in pred.propagate_in_video(sid, prompt):
+                o = out["outputs"]
+                boxes.append(o["bbox"])
+                scores.append(o["score"])
+                active.append(o["active"])
+                ids.append(o["obj_id"])
+                masks.append(o["mask"])
+                tscores.append(o["tracker_score"])
+            out_dir.mkdir(parents=True, exist_ok=True)
+            boxes = np.stack(boxes)
+            scores = np.stack(scores)
+            active = np.stack(active)
+            np.save(out_dir / f"{prompt}_bboxes.npy", boxes)
+            np.save(out_dir / f"{prompt}_scores.npy", scores)
+            np.save(out_dir / f"{prompt}_active.npy", active)
+            np.save(out_dir / f"{prompt}_obj_ids.npy", np.stack(ids))
+            np.save(out_dir / f"{prompt}_masks.npy",
+                    _resize_masks(np.stack(masks), cfg.get("save_mask_size")))
+            np.save(out_dir / f"{prompt}_tracker_scores.npy",
+                    np.stack(tscores))
+            if prompt == "person":
+                # (T, 4) best-track path for front_side; frames with no
+                # active track carry the nearest valid box
+                sel = np.where(active, scores, -1.0)
+                best = np.argmax(sel, axis=1)
+                tt = np.arange(len(best))
+                valid = sel[tt, best] > -1.0
+                pb = boxes[tt, best].astype(np.float32)
+                if valid.any():
+                    idx = np.where(valid, tt, -1)
+                    ff = np.maximum.accumulate(idx)
+                    ff = np.where(ff < 0, int(np.argmax(valid)), ff)
+                    pb = pb[ff]
+                np.save(out_dir / "person_bboxes.npy", pb)
+                np.save(out_dir / "person_valid.npy", valid)
+            report[prompt] = {"frames": int(len(boxes)),
+                              "mean_active": float(active.mean()),
+                              "masks_saved": True}
+            pred.reset_session(sid)
+    finally:
+        pred.close_session(sid)
+    return report
+
+
+def process_video(pred, video_path: Path, out_dir: Path, cfg) -> dict:
+    from skix_torch.io.video import read_video
+
+    frames = read_video(video_path, max_frames=cfg.get("max_frames"))
+    return process_frames(pred, frames, out_dir, cfg)
+
+
+@cli_main("prepare_front_results")
+def main(cfg):
+    logging.basicConfig(level=logging.INFO)
+    if bool(cfg.get("overlay_video", False)):
+        raise NotImplementedError(
+            "overlay_video comes with the port of skix/vis/masklet.py")
+    timer = StageTimer()
+    pred = build_predictor(cfg, timer=timer)
+    root = Path(cfg.paths.video_root)
+    out_root = Path(cfg.paths.out_root)
+    reports = {}
+    for person_dir in iter_person_dirs(root, cfg):
+        for vi, video in enumerate(sorted(person_dir.glob("*.mp4"))):
+            # one front video per person writes the flat layout front_side
+            # reads; further videos get their own <stem>/ subdir
+            out_dir = out_root / person_dir.name
+            if vi > 0:
+                out_dir = out_dir / video.stem
+                log.warning("%s: multiple front videos — %s outputs "
+                            "namespaced under %s", person_dir.name,
+                            video.stem, out_dir)
+            try:
+                reports[f"{person_dir.name}/{video.stem}"] = process_video(
+                    pred, video, out_dir, cfg)
+                log.info("%s/%s tracked", person_dir.name, video.stem)
+            except Exception:  # noqa: BLE001
+                log.exception("%s failed", video)
+    out_root.mkdir(parents=True, exist_ok=True)
+    (out_root / "front_summary.json").write_text(json.dumps(reports, indent=2))
+    timer.save(out_root / "front_timing.json")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,11 @@
 """Stage CLI: the pipeline orchestrator with per-stage timing.
 
-Port of ``skix/pipelines/run_all.py``. Its ``vggt`` stage is ported: the
-VGGT multi-view reconstruction over the pt records, into
-``<work_root>/vggt``. The orchestrator writes ``pipeline_timing.json`` and
+Port of ``skix/pipelines/run_all.py``. Two stages are ported: ``vggt``,
+the VGGT multi-view reconstruction over the pt records, into
+``<work_root>/vggt``; ``prepare_front_results``, the SAM3 front path over
+the front videos under ``paths.video_root``, into ``<work_root>/front``
+(skipped, as in skix, when ``paths.front_root`` is given or the video root
+is missing). The orchestrator writes ``pipeline_timing.json`` and
 ``pipeline_summary.json`` into ``work_root`` as skix does. Each stage gets
 its config as an in-memory mapping (skix writes it to
 ``generated_configs/<stage>.yaml`` first), so a run whose own config is a
@@ -24,7 +27,7 @@ from skix_torch.utils.profiling import StageTimer
 
 log = logging.getLogger(__name__)
 
-PORTED_STAGES = ("vggt",)
+PORTED_STAGES = ("vggt", "prepare_front_results")
 DEFAULT_STAGES = ["videopose3d", "triangulation", "bundle_adjustment", "fuse",
                   "angle", "metrics"]
 
@@ -65,6 +68,31 @@ def main(cfg):
         with timer.span("vggt"):
             vggt(stage_cfg)
         summary["vggt"] = str(work / "vggt")
+
+    front_root = cfg.paths.get("front_root")
+    video_root = cfg.paths.get("video_root")
+    if "prepare_front_results" in stages:
+        if front_root:
+            log.info("front_root provided — prepare_front_results skipped")
+        elif not (video_root and Path(video_root).exists()):
+            log.warning("prepare_front_results requested but video_root %r "
+                        "missing — skipping", video_root)
+        else:
+            from skix_torch.pipelines.prepare_front_results import main as front
+
+            front_root = work / "front"
+            stage_cfg = {
+                "paths": {"video_root": str(video_root),
+                          "out_root": str(front_root)},
+                "checkpoint": cfg.get("front_checkpoint"),
+                "prompts": list(cfg.get("front_prompts",
+                                        ["person", "snow"])),
+                "max_frames": cfg.get("max_frames"),
+                "device": str(cfg.get("device", "cuda")),
+            }
+            with timer.span("prepare_front_results"):
+                front(stage_cfg)
+            summary["prepare_front_results"] = str(front_root)
 
     timer.log_report()
     timer.save(work / "pipeline_timing.json")

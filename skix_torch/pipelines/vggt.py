@@ -31,6 +31,7 @@ import torch
 
 from skix_torch.config import cli_main, iter_person_dirs
 from skix_torch.utils.device import resolve_device
+from skix_torch.utils.image import bilinear_weights as _resize_weights
 from skix_torch.utils.profiling import StageTimer
 
 log = logging.getLogger(__name__)
@@ -80,32 +81,13 @@ def load_or_init_variables(model, cfg):
     return cast_to_compute_dtype(model).eval()
 
 
-def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """``(n_in, n_out)`` float32 weights of ``jax.image.resize(...,
-    "bilinear")`` along one axis (jax's ``compute_weight_mat``): a
-    triangle kernel at half-pixel centers, widened by 1/scale when
-    downsampling (antialiasing), columns normalized to sum 1."""
-    inv_scale = np.float32(1.0 / (n_out / n_in))
-    kernel_scale = np.maximum(inv_scale, np.float32(1.0))
-    sample_f = ((np.arange(n_out, dtype=np.float32) + np.float32(0.5))
-                * inv_scale - np.float32(0.5))
-    x = np.abs(sample_f[None, :]
-               - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
-    w = np.maximum(np.float32(0.0), np.float32(1.0) - x)
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                 w / np.where(total != 0, total, 1), 0)
-    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
-    return np.where(inside[None, :], w, 0).astype(np.float32)
-
-
 def preprocess_frames(frames_u8: np.ndarray, img_size: int,
                       device="cpu") -> torch.Tensor:
     """Resize + [0,1] normalize a ``(S, H, W, 3)`` uint8 frame set for VGGT:
     ``(S, img_size, img_size, 3)`` float32 on ``device``, as
     ``jax.image.resize(x / 255, ..., "bilinear")`` (two separable
-    products with its weight matrices; an axis already at ``img_size`` is
-    left as it is)."""
+    products with its weight matrices, ``skix_torch.utils.image``; an axis
+    already at ``img_size`` is left as it is)."""
     x = torch.as_tensor(np.asarray(frames_u8), device=device).to(torch.float32)
     x = x / 255.0
     H, W = x.shape[1], x.shape[2]

@@ -23,11 +23,17 @@ class StageTimer:
         self.counts: dict[str, int] = {}
 
     @contextlib.contextmanager
-    def span(self, name: str):
+    def span(self, name: str, sync: bool = False):
+        """Time the block; ``sync`` ends it with ``torch.cuda.synchronize()``
+        so that the span holds the device work it enqueued."""
         t0 = time.perf_counter()
         try:
             yield
         finally:
+            if sync:
+                import torch
+
+                torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             self.spans[name] = self.spans.get(name, 0.0) + dt
             self.counts[name] = self.counts.get(name, 0) + 1

@@ -141,3 +141,94 @@ def test_cpu_wrapper_launches_nothing():
     q = torch.zeros(1, 1, 4, 64)
     A.flash_attention(q, q, q)
     assert A.LAUNCHES["flash_fwd"] == 0
+
+
+# --------------------------------------------------------------------------
+# K2 (single tile) and K1's lse output
+# --------------------------------------------------------------------------
+WINDOW_CASES = [
+    # (B, H, S, D): ViT-Det window layouts at test widths
+    (2, 4, 16, 32),
+    (9, 2, 36, 64),
+]
+
+
+@pytest.mark.parametrize("fixed_max", [None, 8.0])
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_plain_single_tile_matches_skix_kernel(case, fixed_max):
+    """The plain K2 against skix's ``_fwd_kernel_single_tile`` through the
+    interpreter (block_q = block_k_major = block_k = S: skix's dispatcher
+    picks the single-tile kernel), with window rope tables."""
+    from skix_torch.models.layers import make_grid_positions
+
+    B, H, S, D = case
+    assert A.is_single_tile(S, S, S, S, S)
+    q, k, v = _inputs((B, H, S, S, D), 13, layer_norm=fixed_max is not None)
+    side = int(math.isqrt(S))
+    pos = make_grid_positions(side, side)
+    cos, sin = (np.array(t) for t in skix_rope_tables(jnp.asarray(pos), D,
+                                                        100.0))
+    want = _skix(q, k, v, (B, H, S, S, D, S, S, S), fixed_max=fixed_max,
+                 rope_cos=jnp.asarray(cos), rope_sin=jnp.asarray(sin))
+    got = _torch(q, k, v, fixed_max=fixed_max, rope_cos=torch.as_tensor(cos),
+                 rope_sin=torch.as_tensor(sin), block_q=S, block_k_major=S,
+                 block_k=S)
+    np.testing.assert_allclose(got, want, atol=3e-5)
+
+
+@pytest.mark.parametrize("S,Sk,blocks,single", [
+    (576, 576, (576, 576, 576), True),      # ViT-Det window
+    (5184, 5184, (576, 576, 576), False),   # fusion encoder: 9 tiles
+    (40, 72, (40, 72, 72), True),
+    (40, 72, (40, 72, 24), True),           # block_k divides the major tile
+    (64, 64, (64, 64, 48), False),          # major tile cut to 48: 2 tiles
+    (64, 64, (1024, 1024, 1024), True),     # blocks clipped to S
+    (100, 100, (1024, 1024, 1024), False),  # clipped to 104: padding
+    (64, 64, (None, None, None), False),    # the port's default: K1
+])
+def test_single_tile_dispatch_matches_skix(S, Sk, blocks, single):
+    """``is_single_tile`` picks K2 exactly where skix's ``_flash_forward``
+    (``skix/ops/attention.py:441-464``) picks ``_fwd_kernel_single_tile``."""
+    assert A.is_single_tile(S, Sk, *blocks) is single
+
+
+LSE_CASES = [
+    # (B, H, Sq, Sk, D, block_q, block_k_major, block_k): ragged on both
+    # axes, as the tracker's 15876 × 63504 is
+    (2, 1, 40, 72, 64, 16, 32, 16),
+    (1, 2, 64, 64, 32, 32, 32, 32),
+]
+
+
+@pytest.mark.parametrize("shared_q", [False, True])
+@pytest.mark.parametrize("case", LSE_CASES)
+def test_plain_lse_matches_skix_kernel(case, shared_q):
+    """``flash_attention_with_lse`` (plain K1 with its base-2 lse) against
+    skix's K1 run with residuals through the interpreter, sm_scale 1 as the
+    memory tracker calls it; ``shared_q``: one q for every batch row, the
+    tracker's first layer (batch stride 0)."""
+    from skix.ops.attention import flash_attention_with_lse as skix_with_lse
+
+    B, H, Sq, Sk, D, bq, bkm, bk = case
+    q, k, v = _inputs(case, 17)
+    q = q * 0.25
+    if shared_q:
+        q = np.broadcast_to(q[:1], q.shape)
+    want_o, want_l = skix_with_lse(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), sm_scale=1.0, block_q=bq,
+                                   block_k_major=bkm, block_k=bk,
+                                   interpret=True)
+    tq = torch.as_tensor(np.array(q[:1])).expand(q.shape) if shared_q else \
+        torch.as_tensor(np.array(q))
+    got_o, got_l = A.flash_attention_with_lse(tq, torch.as_tensor(k),
+                                              torch.as_tensor(v), 1.0)
+    assert got_l.shape == (B, H, Sq) and got_l.dtype == torch.float32
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=3e-5)
+    np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), atol=3e-5)
+
+
+def test_cpu_lse_launches_nothing():
+    A.LAUNCHES.clear()
+    q = torch.zeros(1, 1, 4, 32)
+    out, lse = A.flash_attention_with_lse(q, q, q)
+    assert not A.LAUNCHES and out.shape == q.shape and lse.shape == (1, 1, 4)
