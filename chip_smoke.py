@@ -7,14 +7,20 @@ Phases, one line each (the last line is the JSON verdict):
 1. device     the card's name and power limit (nvidia-smi);
 2. build      every CUDA kernel of the main paths, from skix_torch/ops/csrc,
               one nvcc process per source, all started together;
-3. kernel     each kernel against its plain PyTorch version on the card at
-              the main paths' shapes, with its time (CUDA events), the plain
-              version's, F.scaled_dot_product_attention's on the same
-              pre-roped inputs (a yardstick only) and the bound of the card:
-              K1 (flash_fwd) at the VGGT and SAM3 shapes, K1 with its lse
-              output (flash_fwd_lse) at the memory tracker's shape, K2
-              (flash_fwd_single_tile) at the ViT-Det window shape, and a
-              small ragged case of each;
+3. kernel     each forward kernel against its plain PyTorch version on the
+              card at the main paths' shapes, with its time (CUDA events),
+              the plain version's, F.scaled_dot_product_attention's on the
+              same pre-roped inputs (a yardstick only) and the bound of the
+              card: K1 (flash_fwd) at the VGGT and SAM3 shapes, K1 with its
+              lse output (flash_fwd_lse) at the memory tracker's shape and
+              the training shapes, K2 (flash_fwd_single_tile, and with its
+              lse) at the ViT-Det window shape, and a small ragged case of
+              each;
+   backward   each backward kernel against its plain version: K3 + K4
+              (flash_bwd_dkv, flash_bwd_dq) at the ViT-Det global and
+              fusion-encoder training shapes, K5 (flash_bwd_single_tile) at
+              the window shape, ragged and bf16 cases; the yardstick is
+              autograd through SDPA, its backward alone;
 4. reference  the VGGT stage at a small width in float32 on the card
               (kernels) and on the CPU (plain versions), same weights, same
               records;
@@ -30,7 +36,18 @@ Phases, one line each (the last line is the JSON verdict):
               memory tracker, 4 frames of 720x1280, prompts person and snow,
               launch counts reset just before and read just after; then warm,
               and once under torch.profiler;
-8. kernels    one JSON object per kernel (and K1 mode) of the paths.
+8. train_ref  one train_detector step of the tiny detector on the card and
+              on the CPU from the same weights and batch: loss, gradients
+              and updated parameters;
+9. train      train_detector's CLI at configs/train_detector.yaml's
+              defaults (preset full: the 482M-parameter Sam3Detector at
+              1008 px, batch 4, DAC, IoU-aware BCE, AdamW + cosine) for 4
+              steps on a synthetic COCO fixture written with OpenCV, launch
+              counts reset just before and read just after (exactly 28 K2,
+              28 K5, 10 K1, 10 K3 and 10 K4 per step); warm step time and
+              its forward/backward/optimizer split, peak memory; then one
+              warm step under torch.profiler;
+10. kernels   one JSON object per kernel (and K1/K2 mode) of the paths.
 
 cuDNN's TF32 is turned off in phase 4 (float32 convolutions, to compare
 card and CPU) and stays off for the phases after it; matmuls keep
@@ -43,6 +60,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -59,6 +77,15 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
                       "skix/ops/attention.py:184"),
     "flash_fwd_single_tile": ("skix_torch/ops/csrc/flash_fwd_single_tile.cu",
                               "skix/ops/attention.py:313"),
+    "flash_fwd_single_tile_lse": (
+        "skix_torch/ops/csrc/flash_fwd_single_tile.cu",
+        "skix/ops/attention.py:313"),
+    "flash_bwd_dkv": ("skix_torch/ops/csrc/flash_bwd.cu",
+                      "skix/ops/attention.py:558"),
+    "flash_bwd_dq": ("skix_torch/ops/csrc/flash_bwd.cu",
+                     "skix/ops/attention.py:631"),
+    "flash_bwd_single_tile": ("skix_torch/ops/csrc/flash_bwd_single_tile.cu",
+                              "skix/ops/attention.py:691"),
 }
 
 FULL = dict(vggt_img_size=518, vggt_embed_dim=1024, vggt_depth=24,
@@ -75,6 +102,13 @@ FRONT_T, FRONT_HW, FRONT_PROMPTS = 4, (720, 1280), ["person", "snow"]
 FRONT_PER_FRAME = {"flash_fwd_single_tile": 28,   # window blocks
                    "flash_fwd": 4 + 6,            # global blocks + encoder
                    "flash_fwd_lse": 2}            # tracker memory attention
+# the training path: steps, the fixture, and launches per step (forward
+# with lse, backward) and per evaluation forward of the full-size detector
+TRAIN_STEPS, TRAIN_IMAGES, TRAIN_HW = 4, 8, (480, 640)
+TRAIN_PER_STEP = {"flash_fwd_single_tile_lse": 28, "flash_bwd_single_tile": 28,
+                  "flash_fwd_lse": 4 + 6, "flash_bwd_dkv": 4 + 6,
+                  "flash_bwd_dq": 4 + 6}
+TRAIN_PER_EVAL = {"flash_fwd_single_tile": 28, "flash_fwd": 4 + 6}
 
 
 def say(phase: str, **fields) -> None:
@@ -132,10 +166,27 @@ def attention_bound_ms(q, k, rope: bool, lse: bool):
 def plain_chunked(q, k, v, kw, lse: bool, rows: int = 2048):
     """The plain version over (batch row, 2048 q rows) chunks: its (Sq, Sk)
     f32 score matrix would not fit the card at the tracker's shape (64 GB
-    for 16 × 15876 × 63504)."""
+    for 16 × 15876 × 63504). With rope (one table for q and k) the chunks
+    are (batch row, 4 heads) over the whole sequence instead."""
     import torch
 
     from skix_torch.ops import attention as A
+
+    if kw.get("rope_cos") is not None:
+        heads = [A.attention_reference(q[b:b + 1, h:h + 4], k[b:b + 1, h:h + 4],
+                                       v[b:b + 1, h:h + 4], return_lse=lse,
+                                       **kw)
+                 for b in range(q.shape[0]) for h in range(0, q.shape[1], 4)]
+        nh = -(-q.shape[1] // 4)
+        rows_of = [torch.cat([(r[0] if lse else r) for r in
+                              heads[b * nh:(b + 1) * nh]], 1)
+                   for b in range(q.shape[0])]
+        out = torch.cat(rows_of)
+        if not lse:
+            return out
+        return out, torch.cat([torch.cat([r[1] for r in
+                                          heads[b * nh:(b + 1) * nh]], 1)
+                               for b in range(q.shape[0])])
 
     outs, lses = [], []
     for b in range(q.shape[0]):
@@ -188,9 +239,12 @@ def check_kernel(case, gen):
         cos, sin = A.rope_2d_tables(pos, D, 100.0)
     sm = 1.0 if scale else 1.0 / math.sqrt(D)
     kw = dict(sm_scale=sm, fixed_max=fixed_max, rope_cos=cos, rope_sin=sin)
-    lse = name == "flash_fwd_lse"
-    if lse:
+    lse = name.endswith("_lse")
+    if name == "flash_fwd_lse" and not rope:    # the memory tracker's call
         run = lambda: A.flash_attention_with_lse(q, k, v, sm)  # noqa: E731
+    elif lse:   # the training forward: the wrapper the autograd Function calls
+        run = lambda: A._launch(name[:-4], q, k, v, sm, fixed_max,  # noqa: E731
+                                cos, sin, True)
     else:
         blocks = ({"block_q": Sq, "block_k_major": Sk, "block_k": Sk}
                   if name == "flash_fwd_single_tile" else {})
@@ -272,6 +326,187 @@ def kernel_cases():
          None, True, 4e-3, False, None),
         ("flash_fwd_single_tile", "ragged", (1, 4, 40, 32), 72, f32, 8.0,
          False, 1e-5, False, None),
+        # the training forward (batch 4): K1 and K2 with their lse output
+        ("flash_fwd_lse", "vitdet_global_train", (4, 16, 5184, 64), 5184,
+         f32, None, True, 1e-5, False, None),
+        ("flash_fwd_lse", "fusion_encoder_train", (4, 8, 5184, 32), 5184,
+         f32, None, False, 1e-5, False, None),
+        ("flash_fwd_single_tile_lse", "vitdet_window_train",
+         (36, 16, 576, 64), 576, f32, None, True, 1e-5, False, None),
+        ("flash_fwd_single_tile_lse", "ragged", (2, 2, 77, 32), 77, f32, 8.0,
+         True, 1e-5, False, None),
+    ]
+
+
+# --------------------------------------------------------------------------
+# phase 3b: the backward kernels against their plain versions
+# --------------------------------------------------------------------------
+# the forward kernel whose backward each case runs, and that backward
+BWD_OF = {"flash_fwd": ("flash_bwd_dkv", "flash_bwd_dq"),
+          "flash_fwd_single_tile": ("flash_bwd_single_tile",)}
+# operations per B·H·Sq·Sk·D of each backward kernel: its matrix products
+# (K3: s, dP, dV, dK; K4: s, dP, dQ; K5: all five)
+BWD_OPS = {"flash_bwd_dkv": 8.0, "flash_bwd_dq": 6.0,
+           "flash_bwd_single_tile": 10.0}
+
+
+def backward_bound_ms(name, q, k):
+    """The least time the card needs for one backward kernel: its inputs
+    (q, k, v, dO, lse, di; the f32 rope tables) read once and its outputs
+    written once, against its products at the input type's peak rate."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    item = q.element_size()
+    outs = {"flash_bwd_dkv": 2 * Sk, "flash_bwd_dq": Sq,
+            "flash_bwd_single_tile": Sq + 2 * Sk}[name]
+    nbytes = (item * B * H * D * (2 * Sq + 2 * Sk + outs)
+              + 2 * 4 * B * H * Sq)
+    ops = BWD_OPS[name] * B * H * Sq * Sk * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[str(q.dtype).split(".")[-1]] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def plain_backward(q, k, v, do, lse, di, sm, cos, sin, heads: int = 4):
+    """The plain K3/K4 (= plain K5) over (batch row, ``heads`` heads)
+    chunks: at (4, 16, 5184, 64) one unchunked f32 score matrix is 6.9 GB,
+    and the backward holds several."""
+    import torch
+
+    from skix_torch.ops import attention as A
+
+    B, H = q.shape[:2]
+    grads = [torch.empty_like(x) for x in (q, k, v)]
+    for b in range(B):
+        for h in range(0, H, heads):
+            sl = (slice(b, b + 1), slice(h, h + heads))
+            got = A.attention_backward_reference(
+                q[sl], k[sl], v[sl], do[sl], lse[sl], di[sl], sm, cos, sin)
+            for g, x in zip(grads, got):
+                g[sl] = x
+    return grads
+
+
+def check_backward(case, gen):
+    """One backward case: ``(forward kernel, label, shape_q, Sk, dtype,
+    fixed_max, rope, tol)``. The forward kernel runs with its lse output,
+    then its backward kernels (K3 and K4, or K5) through the wrapper the
+    autograd Function calls, against the plain backward on the same
+    inputs; each backward kernel is also timed alone. ``tol`` bounds
+    max |kernel − plain| over dq, dk, dv relative to max |plain| of each."""
+    import torch
+    import torch.nn.functional as F
+
+    from skix_torch.models.layers import make_grid_positions
+    from skix_torch.ops import attention as A
+
+    fwd, label, shape, Sk, dtype, fixed_max, rope, tol = case
+    B, H, Sq, D = shape
+    dev = torch.device("cuda")
+    q = torch.randn((B, H, Sq, D), generator=gen, device=dev)
+    k, v = (torch.randn((B, H, Sk, D), generator=gen, device=dev)
+            for _ in range(2))
+    do = torch.randn((B, H, Sq, D), generator=gen, device=dev)
+    if fixed_max is not None:
+        q = F.layer_norm(q, (D,))
+        k = F.layer_norm(k, (D,))
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    cos = sin = None
+    if rope:
+        side = math.isqrt(Sq)
+        if side * side == Sq:
+            pos = torch.as_tensor(make_grid_positions(side, side), device=dev)
+        else:
+            grid = torch.as_tensor(make_grid_positions(37, 37) + 1, device=dev)
+            pos = torch.cat([torch.zeros(5, 2, dtype=grid.dtype, device=dev),
+                             grid]).repeat(-(-Sq // 1374), 1)[:Sq]
+        cos, sin = A.rope_2d_tables(pos, D, 100.0)
+    sm = 1.0 / math.sqrt(D)
+    kernels = BWD_OF[fwd]
+    with torch.no_grad():
+        o, lse = A._launch(fwd, q, k, v, sm, fixed_max, cos, sin, True)
+        di = (o.float() * do.float()).sum(-1)
+        before = {n: A.LAUNCHES[n] for n in kernels}
+        got = A._launch_backward(kernels, q, k, v, do, lse, di, sm, cos, sin)
+        torch.cuda.synchronize()
+        if any(A.LAUNCHES[n] != before[n] + 1 for n in kernels):
+            fail(f"{kernels} {label}: the wrapper did not launch its kernels")
+        big = B * H * Sq * Sk > 2 ** 28
+        plain = ((lambda: plain_backward(q, k, v, do, lse, di, sm, cos, sin))
+                 if big else (lambda: A.attention_backward_reference(
+                     q, k, v, do, lse, di, sm, cos, sin)))
+        ref = plain()
+        errs = {f"d{n}": (g.float() - r.float()).abs().max().item()
+                for n, g, r in zip("qkv", got, ref)}
+        scales = {f"d{n}": r.float().abs().max().item()
+                  for n, r in zip("qkv", ref)}
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        slow = B * H * Sq * Sk * D > 2 ** 38
+        reps = 3 if slow else 10
+        ms = {n: cuda_ms(lambda n=n: A._launch_backward(
+            (n,), q, k, v, do, lse, di, sm, cos, sin), reps) for n in kernels}
+        plain_ms = cuda_ms(plain, 1 if slow else 3)
+    # the yardstick: autograd through SDPA on the pre-roped inputs, its
+    # backward alone (the forward runs outside the timed region)
+    qr = (A.apply_rope_tables(q, cos, sin) if rope else q).detach()
+    kr = (A.apply_rope_tables(k, cos, sin) if rope else k).detach()
+    leaves = [x.contiguous().requires_grad_() for x in (qr, kr, v)]
+    out = None
+    try:
+        out = F.scaled_dot_product_attention(*leaves, scale=sm)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), reps)
+    except RuntimeError as e:   # no fused SDPA backend took the call
+        say("backward", case=label, library_error=json.dumps(str(e)[:200]))
+        lib_ms = None
+    del leaves, out
+    rows = []
+    for n in kernels:
+        bound, bound_by = backward_bound_ms(n, q, k)
+        row = {"name": n, "case": label, "shape_q": list(shape), "Sk": Sk,
+               "dtype": str(dtype).split(".")[-1], "fixed_max": fixed_max,
+               "rope": rope, "max_abs_err": max(errs.values()),
+               "errs": errs, "grad_scale": scales, "tol": tol, "ms": ms[n],
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound, "bound_by": bound_by}
+        say("backward", **{k_: (json.dumps(v_).replace(" ", "")
+                                if isinstance(v_, dict) else v_)
+                           for k_, v_ in row.items()})
+        rows.append(row)
+    if not finite:
+        fail(f"{kernels} {label}: non-finite gradients")
+    bad = [n for n in errs if not errs[n] <= tol * max(scales[n], 1e-30)]
+    if bad:
+        fail(f"{kernels} {label}: {bad} off by {errs} (scales {scales}, "
+             f"tol {tol} relative)")
+    return rows
+
+
+# every backward case: (forward kernel, label, shape_q, Sk, dtype, fixed_max,
+# rope, tol relative to max |plain gradient|). f32: the sum order alone
+# (sums over up to 5184 rows); bf16: p, dS and the gradients round to bf16,
+# and a sum taken in another order can tip one rounding of p or dS (a step
+# of 2⁻⁸ relative).
+def backward_cases():
+    import torch
+
+    bf, f32 = torch.bfloat16, torch.float32
+    return [
+        ("flash_fwd_single_tile", "vitdet_window", (36, 16, 576, 64), 576,
+         f32, None, True, 1e-5),
+        ("flash_fwd", "vitdet_global", (4, 16, 5184, 64), 5184, f32, None,
+         True, 1e-5),
+        ("flash_fwd", "fusion_encoder", (4, 8, 5184, 32), 5184, f32, None,
+         False, 1e-5),
+        ("flash_fwd", "ragged", (2, 3, 1000, 64), 1000, f32, None, True, 1e-5),
+        ("flash_fwd", "ragged_cross_d128", (1, 2, 77, 128), 130, f32, None,
+         False, 1e-5),
+        ("flash_fwd_single_tile", "ragged", (2, 2, 77, 32), 77, f32, 8.0,
+         True, 1e-5),
+        ("flash_fwd", "vggt_frame_bf16", (2, 16, 1374, 64), 1374, bf, 12.0,
+         True, 2e-2),
+        ("flash_fwd_single_tile", "window_bf16", (2, 4, 576, 64), 576, bf,
+         None, True, 2e-2),
     ]
 
 
@@ -714,9 +949,272 @@ def front_profile_phase(tmp: Path, frames):
          for e in top]).replace(" ", ""))
 
 
+# --------------------------------------------------------------------------
+# phase 8: one training step of the tiny detector, card against CPU
+# --------------------------------------------------------------------------
+def write_coco(root: Path, n: int, hw, seed: int) -> Path:
+    """A COCO instances file of ``n`` images of ``hw`` pixels, each with 1–3
+    objects (a bright random pentagon on noise, its polygon as the
+    segmentation), written with OpenCV; returns the json path."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    (root / "img").mkdir(parents=True, exist_ok=True)
+    H, W = hw
+    images, anns = [], []
+    for i in range(n):
+        img = (rng.random((H, W, 3)) * 60).astype(np.uint8)
+        for _ in range(int(rng.integers(1, 4))):
+            c = rng.uniform(0.2, 0.8, 2) * (W, H)
+            r = rng.uniform(0.06, 0.2) * min(H, W)
+            ang = np.sort(rng.uniform(0, 2 * np.pi, 5))
+            poly = np.stack([c[0] + r * np.cos(ang), c[1] + r * np.sin(ang)],
+                            -1).round()
+            cv2.fillPoly(img, [poly.astype(np.int32)],
+                         tuple(int(x) for x in rng.integers(120, 255, 3)))
+            (x0, y0), (x1, y1) = poly.min(0), poly.max(0)
+            anns.append({"id": len(anns), "image_id": i, "category_id": 1,
+                         "bbox": [float(x0), float(y0), float(x1 - x0),
+                                  float(y1 - y0)], "iscrowd": 0,
+                         "area": float((x1 - x0) * (y1 - y0)),
+                         "segmentation": [poly.ravel().tolist()]})
+        cv2.imwrite(str(root / "img" / f"{i}.png"), img)
+        images.append({"id": i, "file_name": f"img/{i}.png", "width": W,
+                       "height": H})
+    path = root / "coco.json"
+    path.write_text(json.dumps({"images": images, "annotations": anns,
+                                "categories": [{"id": 1, "name": "skier"}]}))
+    return path
+
+
+def train_reference_phase(tmp: Path):
+    """One step of train_detector's loss and optimizer, tiny preset, on the
+    card and on the CPU from the same weights and the same collated batch.
+    The tiny trunk's head dim is 32: its window blocks (16 tokens) launch
+    K2 and K5, its global block K1, K3 and K4."""
+    import torch
+
+    from skix_torch.config import config_from_mapping
+    from skix_torch.data import CocoDataset, CocoLoader
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines import train_detector as T
+
+    torch.backends.cudnn.allow_tf32 = False
+    root = tmp / "coco_ref"
+    jp = write_coco(root, 4, (96, 128), seed=2)
+    lr = 5e-4
+    cfg = config_from_mapping({"preset": "tiny", "lr": lr,
+                               "weight_decay": 1e-4, "grad_clip": 1.0,
+                               "dac": True, "loss": {"cls": "iabce"}})
+    batch = next(iter(CocoLoader(CocoDataset(jp, image_root=root),
+                                 batch_size=4, image_size=112, max_objects=4,
+                                 seed=0)))
+    cpu = T.build_detector(cfg, "cpu")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    gpu = T.build_detector(cfg, "cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    res = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        dev = next(model.parameters()).device
+        opt = T.build_optimizer(cfg, model, 10)
+        A.LAUNCHES.clear()
+        loss, _, _ = T.make_loss_fn(model, cfg, 112)(T.batch_to(batch, dev))
+        opt.zero_grad()
+        loss.backward()
+        launches = dict(A.LAUNCHES)
+        grads = {n: (p.grad.detach().cpu().clone() if p.grad is not None
+                     else torch.zeros(p.shape)) for n, p in
+                 model.named_parameters()}
+        opt.step()
+        res[name] = (loss.item(), grads, launches,
+                     {n: p.detach().cpu() for n, p in model.named_parameters()})
+    (l_c, g_c, _, p_c), (l_g, g_g, launches, p_g) = res["cpu"], res["cuda"]
+    # limits: f32 on both sides, sums in other orders (cuBLAS, the kernels,
+    # MKL); each gradient leaf within 1e-4·max|g| + 1e-6 (g_err, the worst
+    # leaf's error over its limit, ≤ 1); after Adam's first step (±lr where
+    # the sign holds), lr/50 where |g| > 1e-5
+    ratio = {n: ((g_g[n] - g_c[n]).abs().max()
+                 / (1e-4 * g_c[n].abs().max() + 1e-6)).item() for n in g_c}
+    worst = sorted(ratio, key=ratio.get)[::-1][:3]
+    g_err = ratio[worst[0]]
+    p_err = max(((p_g[n] - p_c[n]).abs()[g_c[n].abs() > 1e-5].max().item()
+                 if (g_c[n].abs() > 1e-5).any() else 0.0) for n in p_c)
+    loss_rel = abs(l_g - l_c) / abs(l_c)
+    want = {"flash_fwd_single_tile_lse": 1, "flash_bwd_single_tile": 1,
+            "flash_fwd_lse": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    say("train_ref", loss_cpu=l_c, loss_card=l_g, loss_rel=loss_rel,
+        grad_err_over_limit=g_err, param_err=p_err,
+        worst_leaves=json.dumps([[n, ratio[n], (g_g[n] - g_c[n]).abs().max()
+                                  .item(), g_c[n].abs().max().item()]
+                                 for n in worst]).replace(" ", ""),
+        launches=json.dumps(launches).replace(" ", ""))
+    if not (loss_rel <= 1e-5 and g_err <= 1.0 and p_err <= lr / 50):
+        fail(f"train_ref: card and CPU disagree (loss {loss_rel}, grads "
+             f"{g_err}, params {p_err})")
+    if launches != want:
+        fail(f"train_ref: launches {launches}, expected {want}")
+
+
+# --------------------------------------------------------------------------
+# phase 9: train_detector at full size, warm split, profiled
+# --------------------------------------------------------------------------
+def _train_argv(tmp: Path):
+    """The CLI overrides of the training path: configs/train_detector.yaml
+    as it is, on the synthetic fixture, for TRAIN_STEPS steps."""
+    root = tmp / "coco_train"
+    return root, [f"paths.checkpoint_dir={tmp / 'train_ckpt'}",
+                  f"coco_json={root / 'coco.json'}", f"image_root={root}",
+                  f"steps={TRAIN_STEPS}", "log_every=1"]
+
+
+def train_phase(tmp: Path):
+    import numpy as np
+    import torch
+
+    from skix_torch.config import load_config
+    from skix_torch.convert import flax_leaf
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines import train_detector as T
+
+    root, argv = _train_argv(tmp)
+    t0 = time.perf_counter()
+    write_coco(root, TRAIN_IMAGES, TRAIN_HW, seed=4)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    A.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    run = T.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(A.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    ckpt = tmp / "train_ckpt"
+    res = json.loads((ckpt / "final_eval.json").read_text())
+    npz = ckpt / f"sam3_detector_{TRAIN_STEPS:06d}.npz"
+    if not npz.exists():
+        fail(f"train: no {npz.name}")
+    # the key set of the converted tree of the same model (names and
+    # shapes, from the port's own state_dict, no data copied)
+    want = {}
+    for key, t in run.model.state_dict().items():
+        parts = key.split(".")
+        leaf, arr = flax_leaf(parts[-1], np.broadcast_to(np.float32(0),
+                                                         tuple(t.shape)))
+        want["/".join(["params", *parts[:-1], leaf])] = arr.shape
+    with np.load(npz) as z:
+        got = {k: z[k].shape for k in z.files}
+    ckpt_mb = npz.stat().st_size / 2 ** 20
+    npz.unlink()
+    # the eval loader yields len(fixture) // batch batches (at most 8),
+    # before and after training
+    batch = int(load_config("train_detector", argv).batch_size)
+    n_eval = 2 * min(8, TRAIN_IMAGES // batch)
+    expected = {k: TRAIN_STEPS * v for k, v in TRAIN_PER_STEP.items()}
+    expected.update({k: n_eval * v for k, v in TRAIN_PER_EVAL.items()})
+    warm = run.steps[1:]
+    split = {k: sum(s[k] for s in warm) / len(warm) * 1e3
+             for k in ("data_s", "forward_s", "backward_s", "optimizer_s")}
+    say("train", wall_s=round(wall_s, 3), fixture_setup_s=round(setup_s, 3),
+        steps=TRAIN_STEPS, final_loss=res.get("final_loss"),
+        ap_before=res.get("ap_before"), ap_after=res.get("ap_after"),
+        warm_step_ms=sum(split.values()),
+        **{f"warm_{k[:-2]}_ms": v for k, v in split.items()},
+        first_step_ms=sum(run.steps[0].values()) * 1e3,
+        peak_mem_gib=round(peak_gib, 2), checkpoint_mb=round(ckpt_mb, 1),
+        checkpoint_leaves=len(got),
+        launches=json.dumps(launches).replace(" ", ""),
+        expected_launches=json.dumps(expected).replace(" ", ""))
+    for k in ("final_loss", "ap_before", "ap_after"):
+        if not (isinstance(res.get(k), float) and math.isfinite(res[k])):
+            fail(f"train: final_eval.json {k} = {res.get(k)}")
+    if got != want:
+        fail(f"train: the checkpoint's keys/shapes differ from the model's "
+             f"converted tree ({len(got)} vs {len(want)} leaves)")
+    if launches != expected:
+        fail(f"train: launches {launches}, expected {expected}")
+    return run, launches
+
+
+def train_profile_phase(tmp: Path, run):
+    """One warm training step of the full-size detector (the main path's
+    trained model, a fresh optimizer, one augmented batch) under
+    ``torch.profiler``: device busy, idle share, top kernels, and the
+    attention kernels' device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from skix_torch.config import load_config
+    from skix_torch.data import CocoDataset, CocoLoader
+    from skix_torch.pipelines import train_detector as T
+
+    root, argv = _train_argv(tmp)
+    cfg = load_config("train_detector", argv)
+    model = run.model
+    size = model.img_size
+    loader = CocoLoader(CocoDataset(cfg.coco_json, image_root=root),
+                        batch_size=int(cfg.batch_size), image_size=size,
+                        max_objects=int(cfg.max_objects),
+                        mask_stride=int(cfg.mask_stride), seed=1)
+    batch = T.batch_to(next(iter(loader)), "cuda")
+    loss_fn = T.make_loss_fn(model, cfg, size)
+    opt = T.build_optimizer(cfg, model, TRAIN_STEPS)
+
+    def step():
+        loss, _, _ = loss_fn(batch)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+
+    step()                      # the fresh optimizer's state, then warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def kind(key):
+        for name, tag in (("bwd_single_tile_kernel", "k5"),
+                          ("single_tile_kernel", "k2"),
+                          ("flash_bwd_dkv_kernel", "k3"),
+                          ("flash_bwd_dq_kernel", "k4"),
+                          ("flash_fwd_kernel", "k1")):
+            if name in key:
+                return tag
+        return None
+
+    by = {t: 0.0 for t in ("k1", "k2", "k3", "k4", "k5")}
+    for e in kernels:
+        t = kind(e.key)
+        if t:
+            by[t] += e.self_device_time_total / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    say("train_profile", wall_ms=round(wall_ms, 1),
+        device_busy_ms=round(busy_ms, 2),
+        device_idle_share=round(1.0 - busy_ms / wall_ms, 4),
+        **{f"{t}_ms": round(v, 2) for t, v in by.items()},
+        **{f"{t}_share": round(v / busy_ms, 4) for t, v in by.items()},
+        kernels_launched=sum(e.count for e in kernels))
+    say("train_profile_top", kernels=json.dumps(
+        [[e.key[:60], round(e.self_device_time_total / 1e3, 2), e.count]
+         for e in top]).replace(" ", ""))
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
+    # the full-size training step peaks at ~74 GiB of the card's 79.1 GiB
+    # (phase train): expandable segments keep the blocks that the earlier
+    # phases freed from fragmenting what it needs
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
         import torch
 
@@ -754,6 +1252,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_kernel(c, gen) for c in kernel_cases()]
     torch.cuda.empty_cache()
+    for c in backward_cases():
+        rows += check_backward(c, gen)
+        torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="skix_chip_smoke_") as tmpdir:
         tmp = Path(tmpdir)
@@ -766,18 +1267,30 @@ def main() -> int:
         # 7. the front main path, warm, profiled
         front_launches, frames = front_phase(tmp)
         front_profile_phase(tmp, frames)
+        torch.cuda.empty_cache()
+        # 8. one training step, tiny, card against CPU
+        train_reference_phase(tmp)
+        # 9. the training main path at full size, profiled
+        train_run, train_launches = train_phase(tmp)
+        train_profile_phase(tmp, train_run)
+        del train_run
 
-    # 8. kernels line: per kernel (K1 per mode) its launches on each main
-    # path, and the times of its case at the path's largest shape; every
-    # case checked above passed its tolerance
+    # 10. kernels line: per kernel (K1 and K2 per mode) its launches on
+    # each main path, and the times of its case at the path's largest
+    # shape; every case checked above passed its tolerance
     headline = {"flash_fwd": "vggt_global", "flash_fwd_lse": "memory_tracker",
-                "flash_fwd_single_tile": "vitdet_window"}
+                "flash_fwd_single_tile": "vitdet_window",
+                "flash_fwd_single_tile_lse": "vitdet_window_train",
+                "flash_bwd_dkv": "vitdet_global",
+                "flash_bwd_dq": "vitdet_global",
+                "flash_bwd_single_tile": "vitdet_window"}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
         h = next(r for r in mine if r["case"] == headline[name])
         by_path = {"vggt": vggt_launches.get(name, 0),
-                   "front": front_launches.get(name, 0)}
+                   "front": front_launches.get(name, 0),
+                   "train": train_launches.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -788,9 +1301,9 @@ def main() -> int:
             "case": h["case"], "shape_q": h["shape_q"], "Sk": h["Sk"],
             "dtype": h["dtype"],
             "checks": [{k: r.get(k) for k in (
-                "case", "shape_q", "Sk", "dtype", "max_abs_err",
-                "lse_max_abs_err", "tol", "ms", "plain_ms", "library_ms",
-                "bound_ms", "bound_by")} for r in mine]})
+                "case", "shape_q", "Sk", "dtype", "max_abs_err", "errs",
+                "grad_scale", "lse_max_abs_err", "tol", "ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by")} for r in mine]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -1,4 +1,4 @@
-"""Weight bridge: a ``skix`` flax variables tree → a PyTorch ``state_dict``.
+"""Weight bridge: a ``skix`` flax variables tree ↔ a PyTorch ``state_dict``.
 
 The port's modules carry the flax names (``aggregator.frame_block_0.attn.qkv``,
 ``q_norm``, ``ls1.gamma``, ``camera_head.trunk_0`` …), so the bridge is a rule
@@ -23,6 +23,15 @@ The tree comes as nested dicts of arrays (``{"params": {...}}`` or the
 ``params`` subtree itself) or as the flat ``"params/a/b/kernel"`` npz that
 ``skix.pipelines.videopose3d.save_checkpoint`` writes. Reading an npz needs
 numpy only, so a machine without JAX loads a skix checkpoint.
+
+:func:`state_dict_to_flax` is the inverse bridge (a trained port module →
+skix's ``params``): every rule above backwards, decided by the name and rank
+of each torch leaf. A 2-D ``weight`` is a Dense kernel (transposed back);
+a 4-D ``weight`` a Conv or ConvTranspose kernel (OIHW back to HWIO; the
+port stores a ConvTranspose kernel unflipped and flips it where it applies
+it, so no flip is undone here); a 1-D ``weight`` a LayerNorm or GroupNorm
+``scale``; every other leaf is copied. DenseGeneral's 3-D kernels and 2-D
+biases take their shapes from a template of the flax tree.
 """
 
 from __future__ import annotations
@@ -102,3 +111,52 @@ def load_into(module: torch.nn.Module, state_dict: Mapping[str, torch.Tensor]
         raise KeyError(f"checkpoint lacks {len(missing)} parameters, "
                        f"e.g. {missing[:5]}")
     return list(unexpected)
+
+
+def flax_leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+    """The flax leaf name and array of one torch leaf (inverse rules)."""
+    if name == "weight":
+        if arr.ndim == 2:
+            return "kernel", arr.T
+        if arr.ndim == 4:
+            return "kernel", arr.transpose(2, 3, 1, 0)
+        if arr.ndim == 1:
+            return "scale", arr
+        raise ValueError(f"weight of rank {arr.ndim} has no rule")
+    return name, arr
+
+
+def state_dict_to_flax(state_dict: Mapping[str, Any],
+                       template: Mapping[str, Any] | None = None
+                       ) -> dict[str, Any]:
+    """Convert a port ``state_dict`` (or any mapping of its keys to tensors,
+    such as the gradients of its parameters) into skix's variables tree
+    ``{"params": {...}}`` of float32 numpy arrays: the inverse of
+    :func:`flax_to_state_dict`. ``template`` (a flax tree, nested or flat
+    ``"a/b/kernel"`` keys, with or without the ``params`` level) gives the
+    shapes of DenseGeneral leaves; a leaf whose element count matches is
+    reshaped to it."""
+    shapes = {}
+    if template is not None:
+        flat = flatten_tree(template)
+        shapes = {k[len("params/"):] if k.startswith("params/") else k:
+                  np.shape(v) for k, v in flat.items()}
+    params: dict[str, Any] = {}
+    for key, value in state_dict.items():
+        arr = (value.detach().to("cpu", torch.float32).numpy()
+               if isinstance(value, torch.Tensor)
+               else np.asarray(value, np.float32))
+        parts = key.split(".")
+        leaf, arr = flax_leaf(parts[-1], arr)
+        path = parts[:-1] + [leaf]
+        want = shapes.get("/".join(path))
+        if want is not None and tuple(want) != arr.shape:
+            if int(np.prod(want)) != arr.size:
+                raise ValueError(f"{key}: {arr.shape} does not fit the "
+                                 f"template's {tuple(want)}")
+            arr = arr.reshape(want)
+        node = params
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.array(arr, np.float32, order="C")  # a copy
+    return {"params": params}

@@ -17,16 +17,17 @@ _EPS = 1e-9
 
 
 def box_iou(a, b):
-    """Pairwise IoU of ``a (N, 4)`` vs ``b (M, 4)`` xyxy boxes → (N, M)."""
-    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
-    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    """Pairwise IoU of ``a (..., N, 4)`` vs ``b (..., M, 4)`` xyxy boxes →
+    (..., N, M); leading axes are a batch (skix vmaps the 2-D form)."""
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
     wh = torch.clamp(rb - lt, min=0.0)
     inter = wh[..., 0] * wh[..., 1]
-    area_a = (torch.clamp(a[:, 2] - a[:, 0], min=0)
-              * torch.clamp(a[:, 3] - a[:, 1], min=0))
-    area_b = (torch.clamp(b[:, 2] - b[:, 0], min=0)
-              * torch.clamp(b[:, 3] - b[:, 1], min=0))
-    union = area_a[:, None] + area_b[None, :] - inter
+    area_a = (torch.clamp(a[..., 2] - a[..., 0], min=0)
+              * torch.clamp(a[..., 3] - a[..., 1], min=0))
+    area_b = (torch.clamp(b[..., 2] - b[..., 0], min=0)
+              * torch.clamp(b[..., 3] - b[..., 1], min=0))
+    union = area_a[..., :, None] + area_b[..., None, :] - inter
     return inter / (union + _EPS)
 
 

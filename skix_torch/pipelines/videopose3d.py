@@ -1,6 +1,6 @@
-"""The parts of ``skix/pipelines/videopose3d.py`` the VGGT stage uses: the
-2D keypoint reader and the flax checkpoint reader. The lifting stage
-itself comes with the kernel-free chain."""
+"""The parts of ``skix/pipelines/videopose3d.py`` the ported stages use:
+the 2D keypoint reader and the flax checkpoint reader and writer. The
+lifting stage itself comes with the kernel-free chain."""
 
 from __future__ import annotations
 
@@ -50,3 +50,24 @@ def load_checkpoint(path: str | Path) -> dict:
             node = node.setdefault(part, {})
         node[parts[-1]] = v
     return out
+
+
+def save_checkpoint(path: str | Path, variables) -> None:
+    """Write nested dicts of arrays (numpy or torch) as the flat
+    ``"params/a/b/kernel"`` npz of skix's ``save_checkpoint``: skix's
+    ``load_checkpoint`` reads what this writes, and :func:`load_checkpoint`
+    reads what skix writes."""
+    flat = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}/{k}" if prefix else k, v)
+        elif hasattr(node, "detach"):
+            flat[prefix] = node.detach().cpu().numpy()
+        else:
+            flat[prefix] = np.asarray(node)
+
+    walk("", variables)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **flat)

@@ -1,20 +1,21 @@
 """SAM3-family open-vocabulary promptable detector.
 
-Port of ``skix/tracking/sam3_detector.py`` (inference): ViT-Det backbone +
-SimpleFPN neck (:mod:`skix_torch.tracking.vitdet`), the vision–language
-fusion encoder, the query decoder with iterative box refinement, boxRPB
-attention bias and presence token, dot-product scoring against the pooled
-prompt, and the maskformer pixel decoder + mask predictor.
+Port of ``skix/tracking/sam3_detector.py``: ViT-Det backbone + SimpleFPN
+neck (:mod:`skix_torch.tracking.vitdet`), the vision–language fusion
+encoder, the query decoder with iterative box refinement, boxRPB attention
+bias, presence token and DAC one-to-many training queries, dot-product
+scoring against the pooled prompt (per decoder layer with
+``with_aux_scores``), and the maskformer pixel decoder + mask predictor.
+Without a text prompt the detector runs unconditioned on its learned
+``null_prompt`` token, as skix's ``train_detector`` trains it.
 
 Attention: an unbiased, unmasked self-attention of ``L ≥ flash_min_seq``
 tokens (the fusion encoder's image self-attention, 5184 tokens of head
-dim 32 at 1008 px) goes through the flash kernel K1; every other attention
-is a plain einsum/softmax, as in skix.
+dim 32 at 1008 px) goes through the flash kernel K1 (and K3/K4 in the
+backward); every other attention is a plain einsum/softmax, as in skix.
 
-Training-only outputs (DAC one-to-many queries, per-layer aux scores), the
-geometry prompt encoder, the unconditioned ``null_prompt`` path and the
-torch-state-dict converters of real checkpoints come with later slices:
-a call that needs them raises.
+The geometry prompt encoder and the torch-state-dict converters of real
+checkpoints come with later slices: a call that needs them raises.
 """
 
 from __future__ import annotations
@@ -32,7 +33,6 @@ from skix_torch.ops.attention import flash_attention
 from skix_torch.tracking.vitdet import SimpleFPNNeck, ViTDetBackbone
 from skix_torch.utils.image import resize
 
-_TRAINING_SLICE = "the training slice of the port"
 _GEOMETRY_SLICE = "the geometry-prompt slice of the port"
 
 
@@ -156,10 +156,24 @@ class DecoderLayer(nn.Module):
         self.ffn = _FFN(dim, dim_feedforward)
 
     def forward(self, q, query_pos, memory, mem_pos, prompt,
-                prompt_pad_mask=None, attn_bias=None):
-        h = self.norm_sa(q)
-        hq = h + query_pos
-        q = q + self.self_attn(hq, hq, h)
+                prompt_pad_mask=None, attn_bias=None, dac_split=None):
+        """``dac_split`` (int | None): the query axis is laid out
+        ``[o2o(dac_split), o2m(dac_split), presence(rest)]`` and
+        self-attention runs over o2o + presence only; the o2m queries skip
+        it. Cross-attention and the FFN apply to every query either way."""
+        if dac_split is None:
+            h = self.norm_sa(q)
+            hq = h + query_pos
+            q = q + self.self_attn(hq, hq, h)
+        else:
+            Qo = dac_split
+            sa = torch.cat([q[:, :Qo], q[:, 2 * Qo:]], 1)
+            sa_pos = torch.cat([query_pos[:, :Qo], query_pos[:, 2 * Qo:]], 1)
+            h = self.norm_sa(sa)
+            hq = h + sa_pos
+            upd = self.self_attn(hq, hq, h)
+            q = torch.cat([q[:, :Qo] + upd[:, :Qo], q[:, Qo:2 * Qo],
+                           q[:, 2 * Qo:] + upd[:, Qo:]], 1)
         h = self.norm_ta(q)
         q = q + self.text_cross_attn(h + query_pos, prompt, prompt,
                                      key_padding_mask=prompt_pad_mask)
@@ -215,11 +229,15 @@ class _BoxHead(nn.Module):
 
 
 class DecoderOut(NamedTuple):
-    queries: torch.Tensor       # (B, Q, C) final-layer features
-    boxes: torch.Tensor         # (B, Q, 4) refined boxes
-    all_boxes: tuple            # per-layer boxes
+    queries: torch.Tensor       # (B, Q, C) final-layer o2o features
+    boxes: torch.Tensor         # (B, Q, 4) refined o2o boxes
+    all_boxes: tuple            # per-layer o2o boxes
     presence: torch.Tensor      # (B, C) presence feature
-    all_queries: tuple = ()     # per-layer features
+    all_queries: tuple = ()     # per-layer o2o features
+    o2m_queries: torch.Tensor = None    # (B, Q, C) with apply_dac
+    o2m_boxes: torch.Tensor = None      # (B, Q, 4) with apply_dac
+    o2m_all_boxes: tuple = ()           # per-layer o2m boxes
+    o2m_all_queries: tuple = ()         # per-layer o2m features
 
 
 class QueryDecoder(nn.Module):
@@ -243,13 +261,23 @@ class QueryDecoder(nn.Module):
 
     def forward(self, memory, mem_pos, prompt, prompt_pad_mask=None,
                 feat_hw=None, apply_dac: bool = False):
-        if apply_dac:
-            raise NotImplementedError(f"apply_dac comes with {_TRAINING_SLICE}")
+        """``apply_dac`` (training): the queries are tiled ×2, laid out
+        ``[o2o(Q), o2m(Q), presence]``; the o2m half reuses the o2o query
+        positions and initial boxes and skips self-attention, so the o2o
+        outputs do not depend on the flag."""
         B, C = memory.shape[0], memory.shape[-1]
         Q = self.num_queries
-        query_pos = self.query_pos.expand(B, -1, -1)
-        q = memory.new_zeros(B, Q + 1, C)
-        boxes = torch.sigmoid(self.init_boxes).expand(B, Q, 4)
+        query_pos = self.query_pos
+        boxes = torch.sigmoid(self.init_boxes)
+        if apply_dac:
+            query_pos = torch.cat([query_pos[:, :Q], query_pos[:, :Q],
+                                   query_pos[:, Q:]], 1)
+            boxes = torch.cat([boxes, boxes], 1)
+        nq = boxes.shape[1]
+        query_pos = query_pos.expand(B, -1, -1)
+        q = memory.new_zeros(B, nq + 1, C)
+        boxes = boxes.expand(B, nq, 4)
+        dac_split = Q if apply_dac else None
         all_boxes, all_q = [], []
         for i in range(self.num_layers):
             attn_bias = None
@@ -263,14 +291,25 @@ class QueryDecoder(nn.Module):
                     [attn_bias, torch.zeros_like(attn_bias[:, :, :1])], 2)
             q = getattr(self, f"layer_{i}")(q, query_pos, memory, mem_pos,
                                             prompt, prompt_pad_mask,
-                                            attn_bias=attn_bias)
+                                            attn_bias=attn_bias,
+                                            dac_split=dac_split)
             hq = getattr(self, f"norm_out_{i}")(q)
-            delta = self.box_head(hq[:, :Q])
+            delta = self.box_head(hq[:, :nq])
             boxes = torch.sigmoid(_inverse_sigmoid(boxes) + delta)
             all_boxes.append(boxes)
-            all_q.append(hq[:, :Q])
+            all_q.append(hq[:, :nq])
+        presence = hq[:, nq]
+        if apply_dac:
+            return DecoderOut(
+                queries=hq[:, :Q], boxes=boxes[:, :Q],
+                all_boxes=tuple(b[:, :Q] for b in all_boxes),
+                presence=presence,
+                all_queries=tuple(x[:, :Q] for x in all_q),
+                o2m_queries=hq[:, Q:2 * Q], o2m_boxes=boxes[:, Q:],
+                o2m_all_boxes=tuple(b[:, Q:] for b in all_boxes),
+                o2m_all_queries=tuple(x[:, Q:] for x in all_q))
         return DecoderOut(queries=hq[:, :Q], boxes=boxes,
-                          all_boxes=tuple(all_boxes), presence=hq[:, Q],
+                          all_boxes=tuple(all_boxes), presence=presence,
                           all_queries=tuple(all_q))
 
 
@@ -348,6 +387,15 @@ class Sam3Detections(NamedTuple):
     embeddings: torch.Tensor    # (B, Q, C) decoder features
     presence: torch.Tensor      # (B,) presence logit
     aux_boxes: tuple            # per-layer boxes
+    # DAC one-to-many outputs (training, apply_dac=True)
+    o2m_boxes: torch.Tensor = None       # (B, Q, 4)
+    o2m_scores: torch.Tensor = None      # (B, Q)
+    o2m_mask_logits: torch.Tensor = None  # (B, Q, H4, W4)
+    o2m_aux_boxes: tuple = ()            # per-layer o2m boxes
+    # per-layer logits of the decoder's queries through the same scoring
+    # head (with_aux_scores=True)
+    aux_scores: tuple = ()               # per-layer (B, Q)
+    o2m_aux_scores: tuple = ()           # per-layer (B, Q)
 
 
 class Sam3Detector(nn.Module):
@@ -355,7 +403,14 @@ class Sam3Detector(nn.Module):
 
     ``full_size()`` is the reference configuration (1008 px, 1024×32
     ViT-Det, d_model 256, 200 queries, 6+6 layers); ``tiny()`` the test
-    configuration of skix."""
+    configuration of skix.
+
+    ``null_prompt``: the model has the learned ``null_prompt`` token that
+    an unconditioned call (no text memory) attends to. skix creates that
+    parameter only when its ``init`` ran without a prompt, as
+    ``train_detector``'s does, so a variables tree has it or not; the flag
+    mirrors that. ``remat`` recomputes each trunk block in the backward
+    (``torch.utils.checkpoint``), skix's ``nn.remat``; off by default."""
 
     def __init__(self, img_size: int = 1008, patch_size: int = 14,
                  backbone_dim: int = 1024, backbone_depth: int = 32,
@@ -368,6 +423,7 @@ class Sam3Detector(nn.Module):
                  box_rpb: str = "log", window_flash: bool = True,
                  tail_flash: bool = True, rope_style: str = "skix",
                  pretrain_img_size: Optional[int] = None,
+                 remat: bool = False, null_prompt: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.img_size, self.d_model = img_size, d_model
@@ -379,7 +435,9 @@ class Sam3Detector(nn.Module):
             mlp_ratio=mlp_ratio, window_size=window_size,
             global_att_blocks=global_att_blocks, window_flash=window_flash,
             rope_style=rope_style, pretrain_img_size=pretrain_img_size,
-            dtype=dtype)
+            remat=remat, dtype=dtype)
+        self.null_prompt = (nn.Parameter(torch.zeros(1, 1, d_model))
+                            if null_prompt else None)
         self.neck = SimpleFPNNeck(backbone_dim, d_model)
         self.encoder = FusionEncoder(
             d_model, encoder_layers,
@@ -412,25 +470,23 @@ class Sam3Detector(nn.Module):
         with torch.no_grad():
             for p, std in ((self.backbone.pos_embed, 0.02),
                            (self.decoder.query_pos, 0.02),
-                           (self.decoder.init_boxes, 0.5)):
-                p.normal_(0.0, std, generator=generator)
+                           (self.decoder.init_boxes, 0.5),
+                           (self.null_prompt, 0.02)):
+                if p is not None:
+                    p.normal_(0.0, std, generator=generator)
         return self
 
     def forward(self, images, text_memory=None, text_pad_mask=None,
                 points=None, boxes=None, apply_dac: bool = False,
                 with_aux_scores: bool = False, **geometry):
         """``images (B, H, W, 3)`` in [0, 1]; ``text_memory (B, L, d_model)``
-        (CLIP resizer output, or the hash smoke embedding)."""
+        (CLIP resizer output, or the hash smoke embedding), or None for the
+        unconditioned detector. ``apply_dac=True`` (training) adds the DAC
+        one-to-many outputs; ``with_aux_scores=True`` (training) scores
+        every decoder layer's queries through the shared scoring head."""
         if points is not None or boxes is not None or geometry:
             raise NotImplementedError(
                 f"geometry prompts come with {_GEOMETRY_SLICE}")
-        if apply_dac or with_aux_scores:
-            raise NotImplementedError(
-                f"apply_dac/with_aux_scores come with {_TRAINING_SLICE}")
-        if text_memory is None:
-            raise NotImplementedError(
-                "the unconditioned detector (null_prompt) is not ported; "
-                "pass a text prompt memory")
         B = images.shape[0]
         trunk = self.backbone((images - 0.5) / 0.5)
         feats, poss = self.neck(trunk)
@@ -438,18 +494,56 @@ class Sam3Detector(nn.Module):
         h, w = f.shape[1], f.shape[2]
         src = f.reshape(B, h * w, self.d_model)
         pos = poss[2].reshape(1, h * w, self.d_model)
-        prompt = text_memory
-        prompt_pad = (torch.zeros(text_memory.shape[:2], dtype=torch.bool,
-                                  device=images.device)
-                      if text_pad_mask is None else text_pad_mask)
+        if text_memory is not None:
+            prompt = text_memory
+            prompt_pad = (torch.zeros(text_memory.shape[:2], dtype=torch.bool,
+                                      device=images.device)
+                          if text_pad_mask is None else text_pad_mask)
+        elif self.null_prompt is not None:  # a learned "detect anything"
+            prompt = self.null_prompt.expand(B, 1, self.d_model)
+            prompt_pad = torch.zeros((B, 1), dtype=torch.bool,
+                                     device=images.device)
+        else:
+            raise ValueError("no text prompt, and this detector has no "
+                             "null_prompt (build it with null_prompt=True)")
         memory = self.encoder(src, pos, prompt, prompt_pad)
-        dec = self.decoder(memory, pos, prompt, prompt_pad, feat_hw=(h, w))
-        scores = self.scoring(dec.queries, prompt, prompt_pad)
+        dec = self.decoder(memory, pos, prompt, prompt_pad, feat_hw=(h, w),
+                           apply_dac=apply_dac)
+        # score/mask the o2o and (with DAC) o2m halves through the same
+        # heads in one pass; the aux layers' queries ride the same call
+        parts = [dec.queries]
+        if apply_dac:
+            parts.append(dec.o2m_queries)
+        n_aux = 0
+        if with_aux_scores:
+            aux_parts = list(dec.all_queries[:-1])
+            if apply_dac:
+                aux_parts += list(dec.o2m_all_queries[:-1])
+            n_aux = len(dec.all_queries) - 1
+            parts += aux_parts
+        head_q = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+        scores_all = self.scoring(head_q, prompt, prompt_pad)
         pres_logit = self.presence_head(dec.presence)[..., 0]
         fused = memory.reshape(B, h, w, self.d_model)
         pixel_embed = self.pixel_decoder([feats[0], feats[1], fused])
-        masks = self.mask_predictor(dec.queries, pixel_embed)
-        return Sam3Detections(boxes_cxcywh=dec.boxes, scores=scores,
-                              mask_logits=masks, embeddings=dec.queries,
-                              presence=pres_logit,
-                              aux_boxes=dec.all_boxes)
+        Q = self.num_queries
+        n_main = Q * (2 if apply_dac else 1)
+        masks_all = self.mask_predictor(head_q[:, :n_main], pixel_embed)
+        extra = {}
+        if apply_dac:
+            extra.update(o2m_boxes=dec.o2m_boxes,
+                         o2m_scores=scores_all[:, Q:2 * Q],
+                         o2m_mask_logits=masks_all[:, Q:],
+                         o2m_aux_boxes=dec.o2m_all_boxes)
+        if with_aux_scores and n_aux:
+            aux_flat = scores_all[:, n_main:]
+            per = [aux_flat[:, i * Q:(i + 1) * Q]
+                   for i in range(aux_flat.shape[1] // Q)]
+            extra["aux_scores"] = tuple(per[:n_aux])
+            if apply_dac:
+                extra["o2m_aux_scores"] = tuple(per[n_aux:])
+        return Sam3Detections(boxes_cxcywh=dec.boxes,
+                              scores=scores_all[:, :Q],
+                              mask_logits=masks_all[:, :Q],
+                              embeddings=dec.queries, presence=pres_logit,
+                              aux_boxes=dec.all_boxes, **extra)

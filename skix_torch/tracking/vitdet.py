@@ -13,6 +13,13 @@ Port of ``skix/tracking/vitdet.py`` with ``rope_style="skix"`` and
   last trunk feature, each ending in 1×1 + 3×3 convs to ``d_model``, with
   sine-cosine position maps.
 
+The trunk trains: window partition and unpartition are reshapes and
+permutes (differentiable), and the attention kernels have their backward
+(K5 for the windows, K3/K4 for the global blocks). ``remat=True`` wraps each
+block in ``torch.utils.checkpoint`` (skix's ``nn.remat``): its activations
+are recomputed in the backward, so its forward kernels launch twice. It is
+off by default, as in skix.
+
 The reference's interleaved axial rope (``rope_style="sam3"``), which only
 converted SAM3 weights need, and the XLA-attention A/B path
 (``window_flash=False``) raise.
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from skix_torch.models.layers import (Block, Conv, ConvTranspose, LayerNorm,
                                       PatchEmbed, make_grid_positions)
@@ -69,7 +77,7 @@ class ViTDetBackbone(nn.Module):
                  global_att_blocks: Sequence[int] = (7, 15, 23, 31),
                  rope_freq: float = 100.0, rope_style: str = "skix",
                  pretrain_img_size: Optional[int] = None, ln_pre: bool = True,
-                 window_flash: bool = True,
+                 remat: bool = False, window_flash: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if rope_style != "skix":
@@ -89,6 +97,7 @@ class ViTDetBackbone(nn.Module):
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.window_size, self.rope_freq = window_size, rope_freq
         self.global_att_blocks = tuple(global_att_blocks)
+        self.remat = remat
         self.dtype = dtype
         self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype)
         base = (pretrain_img_size or img_size) // patch_size
@@ -117,6 +126,8 @@ class ViTDetBackbone(nn.Module):
         glob = set(self.global_att_blocks)
         for i in range(self.depth):
             blk = getattr(self, f"block_{i}")
+            if self.remat and torch.is_grad_enabled():
+                blk = functools.partial(checkpoint, blk, use_reentrant=False)
             if i in glob:
                 t = blk(x.reshape(B, gh * gw, C), rope_glob)
                 x = t.reshape(B, gh, gw, C)

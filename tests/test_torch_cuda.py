@@ -67,10 +67,99 @@ def test_cuda_kernel_matches_plain(cuda, shape, dtype, fixed_max, rope, atol):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_refuses_gradients(cuda):
-    q = torch.zeros(1, 1, 8, 64, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        A.flash_attention(q, q, q)
+@pytest.mark.parametrize("single", [False, True])
+def test_cuda_autograd_launches_forward_and_backward(cuda, single):
+    """A CUDA call that needs a gradient runs the forward with its lse and
+    the backward kernels: K1 then K3 + K4, or K2 then K5 where the blocks
+    make the sequence one tile; the gradients equal the plain backward's
+    on the same inputs."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn((2, 2, 64, 64), generator=g, device=cuda)
+               .requires_grad_() for _ in range(3))
+    do = torch.randn((2, 2, 64, 64), generator=g, device=cuda)
+    blocks = dict(block_q=64, block_k_major=64, block_k=64) if single else {}
+    before = dict(A.LAUNCHES)
+    out = A.flash_attention(q, k, v, **blocks)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    want = (("flash_fwd_single_tile_lse", "flash_bwd_single_tile") if single
+            else ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq"))
+    for name in want:
+        assert A.LAUNCHES[name] == before.get(name, 0) + 1, name
+    with torch.no_grad():
+        o, lse = A.attention_reference(q, k, v, return_lse=True)
+        ref = A.attention_backward_reference(q, k, v, do, lse,
+                                             (o * do).sum(-1))
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def _backward_case(cuda, shape_q, Sk, dtype, rope, fixed_max, single):
+    B, H, Sq, D = shape_q
+    q, k, v = _qkv(cuda, shape_q, (B, H, Sk, D), dtype, seed=7)
+    do = _qkv(cuda, shape_q, shape_q, dtype, seed=8)[0]
+    if fixed_max is not None:
+        q = torch.nn.functional.layer_norm(q, (D,))
+        k = torch.nn.functional.layer_norm(k, (D,))
+    cos = sin = None
+    if rope:
+        pos = torch.as_tensor(np.resize(_positions(133), (Sq, 2)), device=cuda)
+        cos, sin = A.rope_2d_tables(pos, D, 100.0)
+    sm = 1 / math.sqrt(D)
+    fwd = "flash_fwd_single_tile" if single else "flash_fwd"
+    kernels = (("flash_bwd_single_tile",) if single
+               else ("flash_bwd_dkv", "flash_bwd_dq"))
+    with torch.no_grad():
+        o, lse = A._launch(fwd, q, k, v, sm, fixed_max, cos, sin, True)
+        di = (o.float() * do.float()).sum(-1)
+        before = dict(A.LAUNCHES)
+        got = A._launch_backward(kernels, q, k, v, do, lse, di, sm, cos, sin)
+        torch.cuda.synchronize()
+        ref = A.attention_backward_reference(q, k, v, do, lse, di, sm, cos,
+                                             sin)
+    for name in kernels:
+        assert A.LAUNCHES[name] == before.get(name, 0) + 1
+    return got, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_q,Sk,dtype,rope,fixed_max", [
+    ((2, 4, 5184, 64), 5184, torch.float32, True, None),   # ViT-Det global
+    ((2, 8, 5184, 32), 5184, torch.float32, False, None),  # fusion encoder
+    ((2, 3, 1000, 64), 1000, torch.float32, True, None),   # ragged
+    ((1, 2, 77, 128), 130, torch.float32, False, None),    # cross, D = 128
+    ((2, 4, 1374, 64), 1374, torch.bfloat16, True, 12.0),  # VGGT frame
+])
+def test_cuda_backward_matches_plain(cuda, shape_q, Sk, dtype, rope,
+                                     fixed_max):
+    """K3 and K4 against the plain K3/K4 on the same inputs and lse: f32
+    sums in another order (relative 1e-5 of each gradient's largest
+    element); bf16: p, dS and the output round to bf16 (2e-2 relative)."""
+    got, ref = _backward_case(cuda, shape_q, Sk, dtype, rope, fixed_max,
+                              False)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=tol * b.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_q,dtype,rope,fixed_max", [
+    ((9, 16, 576, 64), torch.float32, True, None),   # ViT-Det windows
+    ((2, 2, 77, 32), torch.float32, True, 8.0),      # ragged
+    ((2, 4, 576, 64), torch.bfloat16, True, None),
+    ((3, 2, 16, 32), torch.float32, True, None),     # the tiny detector
+])
+def test_cuda_single_tile_backward_matches_plain(cuda, shape_q, dtype, rope,
+                                                 fixed_max):
+    """K5 (one launch: dK/dV CTAs and dQ CTAs) against the plain K5."""
+    got, ref = _backward_case(cuda, shape_q, shape_q[2], dtype, rope,
+                              fixed_max, True)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=tol * b.float().abs().max().item())
 
 
 def _qkv(cuda, shape_q, shape_k, dtype, seed=0):

@@ -62,6 +62,35 @@ def test_vitdet_backbone_matches_skix():
     _close(got, want)
 
 
+def test_vitdet_remat_gives_the_same_gradients():
+    """``remat=True`` (each block under torch.utils.checkpoint, skix's
+    nn.remat) recomputes the blocks in the backward: the same output and
+    the same parameter and input gradients as without it."""
+    from skix_torch.tracking.vitdet import ViTDetBackbone
+
+    gen = torch.Generator().manual_seed(0)
+    plain = ViTDetBackbone(**TINY_VIT)
+    with torch.no_grad():
+        for p in plain.parameters():
+            p.normal_(0.0, 0.1, generator=gen)
+    remat = ViTDetBackbone(**TINY_VIT, remat=True)
+    remat.load_state_dict(plain.state_dict())
+    img = torch.randn((1, 112, 112, 3), generator=gen)
+    got = []
+    for m in (plain, remat):
+        x = img.clone().requires_grad_()
+        out = m(x)
+        out.backward(torch.ones_like(out))
+        got.append((out.detach(), x.grad,
+                    {n: p.grad for n, p in m.named_parameters()}))
+    (o1, gx1, g1), (o2, gx2, g2) = got
+    torch.testing.assert_close(o2, o1, atol=0, rtol=0)
+    torch.testing.assert_close(gx2, gx1, atol=1e-6, rtol=0)
+    for n in g1:
+        torch.testing.assert_close(g2[n], g1[n], atol=1e-6, rtol=1e-5,
+                                   msg=n)
+
+
 def test_vitdet_refuses_what_is_not_ported():
     from skix_torch.tracking.vitdet import ViTDetBackbone
 
@@ -175,9 +204,15 @@ def test_sam3_detector_random_init_is_finite():
 
 
 def test_sam3_detector_refuses_training_and_geometry(detector_pair):
+    """Geometry prompts are not ported: they raise, in training mode too.
+    The training outputs (DAC, aux scores) are ported and checked in
+    tests/test_torch_train_detector.py; without a text prompt a detector
+    built without the null_prompt token refuses the call."""
     _, _, port = detector_pair
     img, text = torch.zeros(1, 112, 112, 3), torch.zeros(1, 4, 64)
-    with pytest.raises(NotImplementedError, match="training"):
-        port(img, text, apply_dac=True)
+    with pytest.raises(NotImplementedError, match="geometry"):
+        port(img, text, apply_dac=True, points=torch.zeros(1, 8, 2))
     with pytest.raises(NotImplementedError, match="geometry"):
         port(img, text, points=torch.zeros(1, 8, 2))
+    with pytest.raises(ValueError, match="null_prompt"):
+        port(img)
