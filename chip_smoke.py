@@ -15,12 +15,16 @@ Phases, one line each (the last line is the JSON verdict):
               lse output (flash_fwd_lse) at the memory tracker's shape and
               the training shapes, K2 (flash_fwd_single_tile, and with its
               lse) at the ViT-Det window shape, and a small ragged case of
-              each;
+              each; then the same kernels with the sam3 configuration's
+              interleaved rope at its global-block and window shapes
+              (inference and training), ragged and bf16, and with the
+              segmented rope;
    backward   each backward kernel against its plain version: K3 + K4
               (flash_bwd_dkv, flash_bwd_dq) at the ViT-Det global and
               fusion-encoder training shapes, K5 (flash_bwd_single_tile) at
-              the window shape, ragged and bf16 cases; the yardstick is
-              autograd through SDPA, its backward alone;
+              the window shape, ragged and bf16 cases, the same with the
+              interleaved rope and K3/K4 with the segmented rope; the
+              yardstick is autograd through SDPA, its backward alone;
 4. reference  the VGGT stage at a small width in float32 on the card
               (kernels) and on the CPU (plain versions), same weights, same
               records;
@@ -36,6 +40,14 @@ Phases, one line each (the last line is the JSON verdict):
               memory tracker, 4 frames of 720x1280, prompts person and snow,
               launch counts reset just before and read just after; then warm,
               and once under torch.profiler;
+7b. sam3      the front stage in the reference SAM3 configuration
+              (rope_style sam3, pretrain 336, prompts through the CLIP
+              tower): front_sam3_ref tiny on the card against the CPU; then
+              reference-layout checkpoints of the full-size ViT-Det trunk,
+              fusion encoder and VE text encoder through the port's
+              converters (sam3_checkpoints); then front_sam3 at full size
+              through run_all, launches counted by kernel and rope style,
+              warm and profiled;
 8. train_ref  one train_detector step of the tiny detector on the card and
               on the CPU from the same weights and batch: loss, gradients
               and updated parameters;
@@ -47,7 +59,12 @@ Phases, one line each (the last line is the JSON verdict):
               28 K5, 10 K1, 10 K3 and 10 K4 per step); warm step time and
               its forward/backward/optimizer split, peak memory; then one
               warm step under torch.profiler;
-10. kernels   one JSON object per kernel (and K1/K2 mode) of the paths.
+9b. train_sam3 the tiny step in the sam3 configuration and optimizer scheme
+              (train_sam3_ref), then the full-size run with model rope_style
+              sam3, optim.scheme sam3 and the converted detector as its
+              initial weights, launches by kernel and rope style;
+10. kernels   one JSON object per kernel (and K1/K2 mode) of the paths, its
+              rope styles under "modes".
 
 cuDNN's TF32 is turned off in phase 4 (float32 convolutions, to compare
 card and CPU) and stays off for the phases after it; matmuls keep
@@ -58,6 +75,7 @@ package beside this file, it exits 1.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -109,6 +127,25 @@ TRAIN_PER_STEP = {"flash_fwd_single_tile_lse": 28, "flash_bwd_single_tile": 28,
                   "flash_fwd_lse": 4 + 6, "flash_bwd_dkv": 4 + 6,
                   "flash_bwd_dq": 4 + 6}
 TRAIN_PER_EVAL = {"flash_fwd_single_tile": 28, "flash_fwd": 4 + 6}
+# the sam3 configuration (the detector that converted SAM3 weights need, a
+# CLIP checkpoint for the prompts): launches by "<kernel>/<rope style>" per
+# frame and prompt, per training step, per evaluation forward
+SAM3_DETECTOR = {"rope_style": "sam3", "pretrain_img_size": 336}
+FRONT_SAM3_PER_FRAME = {"flash_fwd_single_tile/interleaved": 28,
+                        "flash_fwd/interleaved": 4, "flash_fwd/none": 6,
+                        "flash_fwd_lse/none": 2}
+TRAIN_SAM3_PER_STEP = {"flash_fwd_single_tile_lse/interleaved": 28,
+                       "flash_bwd_single_tile/interleaved": 28,
+                       "flash_fwd_lse/interleaved": 4, "flash_fwd_lse/none": 6,
+                       "flash_bwd_dkv/interleaved": 4, "flash_bwd_dkv/none": 6,
+                       "flash_bwd_dq/interleaved": 4, "flash_bwd_dq/none": 6}
+TRAIN_SAM3_PER_EVAL = {"flash_fwd_single_tile/interleaved": 28,
+                       "flash_fwd/interleaved": 4, "flash_fwd/none": 6}
+SEGMENT_AXES = (8, 12, 8)      # the segmented rope's case: a tail of 4 of 32
+# train_ref, train_sam3_ref: a gradient leaf that moves on the CPU by more
+# than this share of its largest element when the batch is reversed is
+# rounding noise (its exact gradient is 0), left out of the gradient check
+NOISE_SHARE = 0.1
 
 
 def say(phase: str, **fields) -> None:
@@ -119,6 +156,15 @@ def say(phase: str, **fields) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def reset_counts() -> None:
+    """Set the wrappers' launch counts (by kernel and by rope style) to 0,
+    just before a main path runs."""
+    from skix_torch.ops import attention as A
+
+    A.LAUNCHES.clear()
+    A.LAUNCHES_BY_STYLE.clear()
 
 
 # --------------------------------------------------------------------------
@@ -204,14 +250,54 @@ def plain_chunked(q, k, v, kw, lse: bool, rows: int = 2048):
     return (out, torch.cat(lses)) if lse else out
 
 
+def rope_tables(style, S: int, D: int, gen):
+    """(cos, sin) tables on the card for a rope of ``style`` over S
+    positions (None: no rope). ``"half"``: skix's 2D rope of a ViT-Det grid
+    or window (S a square) or of the VGGT layout (5 special tokens, then
+    the 37 × 37 grid); ``"interleaved"``: the sam3 axial angles of the
+    square grid (or of one row of S); ``("segments", axes)``: the 3D rope
+    of random integer (t, y, x) positions."""
+    import torch
+
+    from skix_torch.models.layers import make_grid_positions
+    from skix_torch.ops import attention as A
+    from skix_torch.tracking.vitdet import axial_rope_angles
+
+    if style is None:
+        return None, None
+    dev = torch.device("cuda")
+    side = math.isqrt(S)
+    if style == "half":
+        if side * side == S:            # a ViT-Det grid or window
+            pos = torch.as_tensor(make_grid_positions(side, side), device=dev)
+        else:                           # the VGGT layout: specials + grid
+            grid = torch.as_tensor(make_grid_positions(37, 37) + 1, device=dev)
+            pos = torch.cat([torch.zeros(5, 2, dtype=grid.dtype, device=dev),
+                             grid])
+            pos = pos.repeat(-(-S // len(pos)), 1)[:S]
+        return A.rope_2d_tables(pos, D, 100.0)
+    if style == "interleaved":
+        gh, gw = (side, side) if side * side == S else (1, S)
+        return A.interleaved_rope_tables(torch.as_tensor(
+            axial_rope_angles(gh, gw, D), device=dev))
+    pos = torch.randint(0, 12, (S, 3), generator=gen, device=dev)
+    return A.rope_3d_tables(pos, D, style[1])
+
+
+def style_label(style) -> str:
+    from skix_torch.ops import attention as A
+
+    return "none" if style is None else A.style_name(style)
+
+
 def check_kernel(case, gen):
     """One kernel-vs-plain case: ``(name, label, shape_q, Sk, dtype,
-    fixed_max, rope, atol, shared_q, sm_scale)``. Launches are counted by
-    the wrappers; the caller resets the counts before the main paths."""
+    fixed_max, rope, atol, shared_q, sm_scale)``, ``rope`` a rope style or
+    None. Launches are counted by the wrappers; the caller resets the
+    counts before the main paths."""
     import torch
     import torch.nn.functional as F
 
-    from skix_torch.models.layers import make_grid_positions
     from skix_torch.ops import attention as A
 
     name, label, shape, Sk, dtype, fixed_max, rope, atol, shared_q, scale = case
@@ -226,25 +312,17 @@ def check_kernel(case, gen):
         k = F.layer_norm(k, (D,))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     q = q.expand(B, H, Sq, D)
-    cos = sin = None
-    if rope:
-        side = math.isqrt(Sq)
-        if side * side == Sq:           # a ViT-Det grid or window
-            pos = torch.as_tensor(make_grid_positions(side, side), device=dev)
-        else:                           # the VGGT layout: specials + grid
-            grid = torch.as_tensor(make_grid_positions(37, 37) + 1, device=dev)
-            pos = torch.cat([torch.zeros(5, 2, dtype=grid.dtype, device=dev),
-                             grid])
-            pos = pos.repeat(-(-Sq // len(pos)), 1)[:Sq]
-        cos, sin = A.rope_2d_tables(pos, D, 100.0)
+    cos, sin = rope_tables(rope, Sq, D, gen)
+    style = rope or "half"
     sm = 1.0 if scale else 1.0 / math.sqrt(D)
-    kw = dict(sm_scale=sm, fixed_max=fixed_max, rope_cos=cos, rope_sin=sin)
+    kw = dict(sm_scale=sm, fixed_max=fixed_max, rope_cos=cos, rope_sin=sin,
+              rope_rotate=style)
     lse = name.endswith("_lse")
     if name == "flash_fwd_lse" and not rope:    # the memory tracker's call
         run = lambda: A.flash_attention_with_lse(q, k, v, sm)  # noqa: E731
     elif lse:   # the training forward: the wrapper the autograd Function calls
         run = lambda: A._launch(name[:-4], q, k, v, sm, fixed_max,  # noqa: E731
-                                cos, sin, True)
+                                cos, sin, True, style)
     else:
         blocks = ({"block_q": Sq, "block_k_major": Sk, "block_k": Sk}
                   if name == "flash_fwd_single_tile" else {})
@@ -266,8 +344,8 @@ def check_kernel(case, gen):
         slow = B * H * Sq * Sk * D > 2 ** 38
         ms = cuda_ms(run, 3 if slow else 20)
         plain_ms = cuda_ms(plain, 1 if slow else 5)
-        qr = A.apply_rope_tables(q, cos, sin) if rope else q
-        kr = A.apply_rope_tables(k, cos, sin) if rope else k
+        qr = A.apply_rope_tables(q, cos, sin, style) if rope else q
+        kr = A.apply_rope_tables(k, cos, sin, style) if rope else k
         qr, kr, vc = qr.contiguous(), kr.contiguous(), v.contiguous()
         try:
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -279,7 +357,8 @@ def check_kernel(case, gen):
     bound, bound_by = attention_bound_ms(q, k, rope, lse)
     row = {"name": name, "case": label, "shape_q": list(shape), "Sk": Sk,
            "dtype": str(dtype).split(".")[-1], "fixed_max": fixed_max,
-           "rope": rope, "max_abs_err": err, "tol": atol, "ms": ms,
+           "rope": style_label(rope), "max_abs_err": err, "tol": atol,
+           "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
            "bound_by": bound_by}
     if lse:
@@ -304,37 +383,56 @@ def kernel_cases():
 
     bf, f32 = torch.bfloat16, torch.float32
     return [
-        ("flash_fwd", "vggt_frame", (2, 16, 1374, 64), 1374, bf, 12.0, True,
+        ("flash_fwd", "vggt_frame", (2, 16, 1374, 64), 1374, bf, 12.0, "half",
          4e-3, False, None),
-        ("flash_fwd", "vggt_global", (1, 16, 2748, 64), 2748, bf, 12.0, True,
+        ("flash_fwd", "vggt_global", (1, 16, 2748, 64), 2748, bf, 12.0, "half",
          4e-3, False, None),
         ("flash_fwd", "vggt_camera_trunk", (1, 16, 2, 128), 2, bf, None,
-         False, 4e-3, False, None),
+         None, 4e-3, False, None),
         ("flash_fwd", "vitdet_global", (1, 16, 5184, 64), 5184, f32, None,
-         True, 1e-5, False, None),
+         "half", 1e-5, False, None),
         ("flash_fwd", "fusion_encoder", (1, 8, 5184, 32), 5184, f32, None,
-         False, 1e-5, False, None),
-        ("flash_fwd", "ragged", (2, 3, 100, 64), 100, f32, None, True, 1e-5,
+         None, 1e-5, False, None),
+        ("flash_fwd", "ragged", (2, 3, 100, 64), 100, f32, None, "half", 1e-5,
          False, None),
         ("flash_fwd_lse", "memory_tracker", (16, 1, 15876, 64), 63504, f32,
-         None, False, 1e-5, True, 0.125),
-        ("flash_fwd_lse", "ragged", (4, 1, 1000, 32), 4100, f32, None, False,
+         None, None, 1e-5, True, 0.125),
+        ("flash_fwd_lse", "ragged", (4, 1, 1000, 32), 4100, f32, None, None,
          1e-5, True, 0.125),
         ("flash_fwd_single_tile", "vitdet_window", (9, 16, 576, 64), 576, f32,
-         None, True, 1e-5, False, None),
+         None, "half", 1e-5, False, None),
         ("flash_fwd_single_tile", "window_bf16", (2, 4, 576, 64), 576, bf,
-         None, True, 4e-3, False, None),
+         None, "half", 4e-3, False, None),
         ("flash_fwd_single_tile", "ragged", (1, 4, 40, 32), 72, f32, 8.0,
-         False, 1e-5, False, None),
+         None, 1e-5, False, None),
         # the training forward (batch 4): K1 and K2 with their lse output
         ("flash_fwd_lse", "vitdet_global_train", (4, 16, 5184, 64), 5184,
-         f32, None, True, 1e-5, False, None),
+         f32, None, "half", 1e-5, False, None),
         ("flash_fwd_lse", "fusion_encoder_train", (4, 8, 5184, 32), 5184,
-         f32, None, False, 1e-5, False, None),
+         f32, None, None, 1e-5, False, None),
         ("flash_fwd_single_tile_lse", "vitdet_window_train",
-         (36, 16, 576, 64), 576, f32, None, True, 1e-5, False, None),
+         (36, 16, 576, 64), 576, f32, None, "half", 1e-5, False, None),
         ("flash_fwd_single_tile_lse", "ragged", (2, 2, 77, 32), 77, f32, 8.0,
-         True, 1e-5, False, None),
+         "half", 1e-5, False, None),
+        # the sam3 configuration: the interleaved rope at the global blocks
+        # and windows, inference (batch 1) and training (batch 4)
+        ("flash_fwd", "vitdet_global_sam3", (1, 16, 5184, 64), 5184, f32,
+         None, "interleaved", 1e-5, False, None),
+        ("flash_fwd_single_tile", "vitdet_window_sam3", (9, 16, 576, 64),
+         576, f32, None, "interleaved", 1e-5, False, None),
+        ("flash_fwd_lse", "vitdet_global_train_sam3", (4, 16, 5184, 64),
+         5184, f32, None, "interleaved", 1e-5, False, None),
+        ("flash_fwd_single_tile_lse", "vitdet_window_train_sam3",
+         (36, 16, 576, 64), 576, f32, None, "interleaved", 1e-5, False,
+         None),
+        ("flash_fwd", "ragged_sam3", (2, 3, 1000, 64), 1000, f32, None,
+         "interleaved", 1e-5, False, None),
+        ("flash_fwd_single_tile", "window_bf16_sam3", (2, 4, 576, 64), 576,
+         bf, None, "interleaved", 4e-3, False, None),
+        # the segmented style (the MMDiT rope; no ported path runs it) at
+        # tests/test_ops.py:237-261's shape: axes (8, 12, 8), a tail of 4
+        ("flash_fwd", "segments", (1, 2, 64, 32), 64, f32, None,
+         ("segments", SEGMENT_AXES), 1e-5, False, None),
     ]
 
 
@@ -367,7 +465,8 @@ def backward_bound_ms(name, q, k):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def plain_backward(q, k, v, do, lse, di, sm, cos, sin, heads: int = 4):
+def plain_backward(q, k, v, do, lse, di, sm, cos, sin, style="half",
+                   heads: int = 4):
     """The plain K3/K4 (= plain K5) over (batch row, ``heads`` heads)
     chunks: at (4, 16, 5184, 64) one unchunked f32 score matrix is 6.9 GB,
     and the backward holds several."""
@@ -381,7 +480,8 @@ def plain_backward(q, k, v, do, lse, di, sm, cos, sin, heads: int = 4):
         for h in range(0, H, heads):
             sl = (slice(b, b + 1), slice(h, h + heads))
             got = A.attention_backward_reference(
-                q[sl], k[sl], v[sl], do[sl], lse[sl], di[sl], sm, cos, sin)
+                q[sl], k[sl], v[sl], do[sl], lse[sl], di[sl], sm, cos, sin,
+                style)
             for g, x in zip(grads, got):
                 g[sl] = x
     return grads
@@ -389,7 +489,8 @@ def plain_backward(q, k, v, do, lse, di, sm, cos, sin, heads: int = 4):
 
 def check_backward(case, gen):
     """One backward case: ``(forward kernel, label, shape_q, Sk, dtype,
-    fixed_max, rope, tol)``. The forward kernel runs with its lse output,
+    fixed_max, rope, tol)``, ``rope`` a rope style or None. The forward
+    kernel runs with its lse output,
     then its backward kernels (K3 and K4, or K5) through the wrapper the
     autograd Function calls, against the plain backward on the same
     inputs; each backward kernel is also timed alone. ``tol`` bounds
@@ -397,7 +498,6 @@ def check_backward(case, gen):
     import torch
     import torch.nn.functional as F
 
-    from skix_torch.models.layers import make_grid_positions
     from skix_torch.ops import attention as A
 
     fwd, label, shape, Sk, dtype, fixed_max, rope, tol = case
@@ -411,30 +511,24 @@ def check_backward(case, gen):
         q = F.layer_norm(q, (D,))
         k = F.layer_norm(k, (D,))
     q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
-    cos = sin = None
-    if rope:
-        side = math.isqrt(Sq)
-        if side * side == Sq:
-            pos = torch.as_tensor(make_grid_positions(side, side), device=dev)
-        else:
-            grid = torch.as_tensor(make_grid_positions(37, 37) + 1, device=dev)
-            pos = torch.cat([torch.zeros(5, 2, dtype=grid.dtype, device=dev),
-                             grid]).repeat(-(-Sq // 1374), 1)[:Sq]
-        cos, sin = A.rope_2d_tables(pos, D, 100.0)
+    cos, sin = rope_tables(rope, Sq, D, gen)
+    style = rope or "half"
     sm = 1.0 / math.sqrt(D)
     kernels = BWD_OF[fwd]
     with torch.no_grad():
-        o, lse = A._launch(fwd, q, k, v, sm, fixed_max, cos, sin, True)
+        o, lse = A._launch(fwd, q, k, v, sm, fixed_max, cos, sin, True, style)
         di = (o.float() * do.float()).sum(-1)
         before = {n: A.LAUNCHES[n] for n in kernels}
-        got = A._launch_backward(kernels, q, k, v, do, lse, di, sm, cos, sin)
+        got = A._launch_backward(kernels, q, k, v, do, lse, di, sm, cos, sin,
+                                 style)
         torch.cuda.synchronize()
         if any(A.LAUNCHES[n] != before[n] + 1 for n in kernels):
             fail(f"{kernels} {label}: the wrapper did not launch its kernels")
         big = B * H * Sq * Sk > 2 ** 28
-        plain = ((lambda: plain_backward(q, k, v, do, lse, di, sm, cos, sin))
+        plain = ((lambda: plain_backward(q, k, v, do, lse, di, sm, cos, sin,
+                                         style))
                  if big else (lambda: A.attention_backward_reference(
-                     q, k, v, do, lse, di, sm, cos, sin)))
+                     q, k, v, do, lse, di, sm, cos, sin, style)))
         ref = plain()
         errs = {f"d{n}": (g.float() - r.float()).abs().max().item()
                 for n, g, r in zip("qkv", got, ref)}
@@ -444,12 +538,13 @@ def check_backward(case, gen):
         slow = B * H * Sq * Sk * D > 2 ** 38
         reps = 3 if slow else 10
         ms = {n: cuda_ms(lambda n=n: A._launch_backward(
-            (n,), q, k, v, do, lse, di, sm, cos, sin), reps) for n in kernels}
+            (n,), q, k, v, do, lse, di, sm, cos, sin, style), reps)
+              for n in kernels}
         plain_ms = cuda_ms(plain, 1 if slow else 3)
     # the yardstick: autograd through SDPA on the pre-roped inputs, its
     # backward alone (the forward runs outside the timed region)
-    qr = (A.apply_rope_tables(q, cos, sin) if rope else q).detach()
-    kr = (A.apply_rope_tables(k, cos, sin) if rope else k).detach()
+    qr = (A.apply_rope_tables(q, cos, sin, style) if rope else q).detach()
+    kr = (A.apply_rope_tables(k, cos, sin, style) if rope else k).detach()
     leaves = [x.contiguous().requires_grad_() for x in (qr, kr, v)]
     out = None
     try:
@@ -465,7 +560,7 @@ def check_backward(case, gen):
         bound, bound_by = backward_bound_ms(n, q, k)
         row = {"name": n, "case": label, "shape_q": list(shape), "Sk": Sk,
                "dtype": str(dtype).split(".")[-1], "fixed_max": fixed_max,
-               "rope": rope, "max_abs_err": max(errs.values()),
+               "rope": style_label(rope), "max_abs_err": max(errs.values()),
                "errs": errs, "grad_scale": scales, "tol": tol, "ms": ms[n],
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound, "bound_by": bound_by}
@@ -493,20 +588,32 @@ def backward_cases():
     bf, f32 = torch.bfloat16, torch.float32
     return [
         ("flash_fwd_single_tile", "vitdet_window", (36, 16, 576, 64), 576,
-         f32, None, True, 1e-5),
+         f32, None, "half", 1e-5),
         ("flash_fwd", "vitdet_global", (4, 16, 5184, 64), 5184, f32, None,
-         True, 1e-5),
+         "half", 1e-5),
         ("flash_fwd", "fusion_encoder", (4, 8, 5184, 32), 5184, f32, None,
-         False, 1e-5),
-        ("flash_fwd", "ragged", (2, 3, 1000, 64), 1000, f32, None, True, 1e-5),
+         None, 1e-5),
+        ("flash_fwd", "ragged", (2, 3, 1000, 64), 1000, f32, None, "half",
+         1e-5),
         ("flash_fwd", "ragged_cross_d128", (1, 2, 77, 128), 130, f32, None,
-         False, 1e-5),
+         None, 1e-5),
         ("flash_fwd_single_tile", "ragged", (2, 2, 77, 32), 77, f32, 8.0,
-         True, 1e-5),
+         "half", 1e-5),
         ("flash_fwd", "vggt_frame_bf16", (2, 16, 1374, 64), 1374, bf, 12.0,
-         True, 2e-2),
+         "half", 2e-2),
         ("flash_fwd_single_tile", "window_bf16", (2, 4, 576, 64), 576, bf,
-         None, True, 2e-2),
+         None, "half", 2e-2),
+        # the sam3 configuration's training shapes, interleaved rope
+        ("flash_fwd_single_tile", "vitdet_window_sam3", (36, 16, 576, 64),
+         576, f32, None, "interleaved", 1e-5),
+        ("flash_fwd", "vitdet_global_sam3", (4, 16, 5184, 64), 5184, f32,
+         None, "interleaved", 1e-5),
+        ("flash_fwd", "ragged_sam3", (2, 3, 1000, 64), 1000, f32, None,
+         "interleaved", 1e-5),
+        ("flash_fwd_single_tile", "window_bf16_sam3", (2, 4, 576, 64), 576,
+         bf, None, "interleaved", 2e-2),
+        ("flash_fwd", "segments", (1, 2, 64, 32), 64, f32, None,
+         ("segments", SEGMENT_AXES), 1e-5),
     ]
 
 
@@ -663,13 +770,13 @@ def main_phase(tmp: Path, device: str = "cuda"):
     on_card = device == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    A.LAUNCHES.clear()
+    reset_counts()
     t0 = time.perf_counter()
     run_all(cfg)
     if on_card:
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(A.LAUNCHES)
+    launches, by_style = dict(A.LAUNCHES), dict(A.LAUNCHES_BY_STYLE)
 
     out = work / "vggt" / "p01" / "multi_view_refined.npz"
     if not out.exists():
@@ -705,7 +812,7 @@ def main_phase(tmp: Path, device: str = "cuda"):
     if launches.get("flash_fwd", 0) != pairs * per_pair:
         fail(f"flash_fwd launched {launches} times on the main path, "
              f"expected {pairs * per_pair}")
-    return launches, cfg
+    return launches, by_style, cfg
 
 
 # --------------------------------------------------------------------------
@@ -758,53 +865,68 @@ def profile_phase(tmp: Path, cfg: dict):
 # --------------------------------------------------------------------------
 # phase 6: the front stage at the tiny width, card against CPU
 # --------------------------------------------------------------------------
-def _front_predictor(device, det_state=None, trk_state=None):
+def _front_predictor(device, sam3: bool, state=None):
     """The tiny Sam3Detector of skix's stage test with a tracker whose head
     dim is 64 (the test's features 16 / 2 heads give head dim 8, which the
-    kernel does not take), seeded random weights or the given ones."""
+    kernel does not take), seeded random weights or the given ``state``
+    (detector, tracker and CLIP state dicts). ``sam3``: the detector in the
+    reference configuration (interleaved rope, a 56-px pretrain position
+    table) and prompts through a tiny CLIP tower (width 64, 2 heads, 1
+    layer, context 32, CLIP's vocabulary); otherwise hash prompts."""
     import torch
 
+    from skix_torch.tracking.clip_text import VETextEncoder
+    from skix_torch.tracking.clip_tokenizer import ClipTokenizer
     from skix_torch.tracking.masklet import MaskletConfig
     from skix_torch.tracking.memory_tracker import MaskMemoryTracker
     from skix_torch.tracking.sam3_detector import Sam3Detector
     from skix_torch.tracking.session import VideoPredictor
 
-    det = Sam3Detector.tiny().to(device)
+    det_kw = dict(rope_style="sam3", pretrain_img_size=56) if sam3 else {}
+    det = Sam3Detector.tiny(**det_kw).to(device)
     trk = MaskMemoryTracker(features=64, num_heads=1, mem_slots=3).to(device)
-    if det_state is None:
-        det.init_weights(torch.Generator(device=device).manual_seed(0))
-        trk.init_weights(torch.Generator(device=device).manual_seed(1))
-    else:
-        det.load_state_dict(det_state)
-        trk.load_state_dict(trk_state)
+    modules = [det, trk]
+    clip = None
+    if sam3:
+        enc = VETextEncoder(d_model=64, width=64, heads=2, layers=1).to(device)
+        modules.append(enc)
+        clip = (ClipTokenizer(context_length=enc.context_length), enc.eval())
+    for seed, m in enumerate(modules):
+        if state is None:
+            m.init_weights(torch.Generator(device=device).manual_seed(seed))
+        else:
+            m.load_state_dict(state[seed])
     cfg = MaskletConfig(max_objects=4, max_dets=6,
                         score_threshold_detection=0.0, new_det_thresh=0.0)
-    return VideoPredictor(det.eval(), trk.eval(), masklet_cfg=cfg,
-                          smoke_prompts=True)
+    pred = VideoPredictor(det.eval(), trk.eval(), masklet_cfg=cfg,
+                          smoke_prompts=clip is None, clip=clip)
+    return pred, [m.state_dict() for m in modules]
 
 
-def front_reference_phase(tmp: Path):
+def front_reference_phase(tmp: Path, sam3: bool = False):
+    """``front_ref`` (hash prompts, skix's rope) or, with ``sam3``,
+    ``front_sam3_ref`` (the sam3 rope and the CLIP tower)."""
     import numpy as np
 
     from skix_torch.config import config_from_mapping
     from skix_torch.ops import attention as A
     from skix_torch.pipelines.prepare_front_results import process_frames
 
+    phase = "front_sam3_ref" if sam3 else "front_ref"
     frames = np.random.default_rng(7).integers(0, 255, (4, 48, 64, 3),
                                                dtype=np.uint8)
     cfg = config_from_mapping({"prompts": FRONT_PROMPTS, "save_mask_size": 24})
-    cpu = _front_predictor("cpu")
-    gpu = _front_predictor("cuda", cpu.detector.state_dict(),
-                           cpu.tracker.state_dict())
-    process_frames(cpu, frames, tmp / "front_ref_cpu", cfg)
-    A.LAUNCHES.clear()
-    process_frames(gpu, frames, tmp / "front_ref_cuda", cfg)
-    launches = dict(A.LAUNCHES)
+    cpu, state = _front_predictor("cpu", sam3)
+    gpu, _ = _front_predictor("cuda", sam3, state)
+    process_frames(cpu, frames, tmp / f"{phase}_cpu", cfg)
+    reset_counts()
+    process_frames(gpu, frames, tmp / f"{phase}_cuda", cfg)
+    launches, by_style = dict(A.LAUNCHES), dict(A.LAUNCHES_BY_STYLE)
     worst = {}
-    for f in sorted((tmp / "front_ref_cpu").glob("*.npy")):
-        a, b = np.load(f), np.load(tmp / "front_ref_cuda" / f.name)
+    for f in sorted((tmp / f"{phase}_cpu").glob("*.npy")):
+        a, b = np.load(f), np.load(tmp / f"{phase}_cuda" / f.name)
         if a.shape != b.shape or a.dtype != b.dtype:
-            fail(f"front_ref: {f.name} {a.shape}/{a.dtype} on the CPU, "
+            fail(f"{phase}: {f.name} {a.shape}/{a.dtype} on the CPU, "
                  f"{b.shape}/{b.dtype} on the card")
         kind = f.stem.split("_", 1)[1]
         if a.dtype == bool and kind == "masks":
@@ -826,22 +948,31 @@ def front_reference_phase(tmp: Path):
               else val == 0)
         if not ok:
             bad.append(k)
-    say("front_ref", **{k: v for k, v in worst.items()},
-        launches=json.dumps(launches).replace(" ", ""))
+    say(phase, **{k: v for k, v in worst.items()},
+        launches=json.dumps(launches).replace(" ", ""),
+        launches_by_style=json.dumps(by_style).replace(" ", ""))
     if bad:
-        fail(f"front_ref: card and CPU disagree on {bad}")
+        fail(f"{phase}: card and CPU disagree on {bad}")
+    # per frame and prompt: one window block (K2), the global block (K1),
+    # two tracker memory-attention layers (K1 with lse); the tiny fusion
+    # encoder's 64 tokens stay below the flash threshold
+    rope = "interleaved" if sam3 else "half"
     want = {"flash_fwd_single_tile": 8, "flash_fwd": 8, "flash_fwd_lse": 16}
-    if launches != want:
-        fail(f"front_ref: launches {launches}, expected {want}")
+    want_style = {f"flash_fwd_single_tile/{rope}": 8,
+                  f"flash_fwd/{rope}": 8, "flash_fwd_lse/none": 16}
+    if launches != want or by_style != want_style:
+        fail(f"{phase}: launches {launches} {by_style}, expected {want} "
+             f"{want_style}")
 
 
 # --------------------------------------------------------------------------
 # phase 7: the front stage at full size, then warm, then profiled
 # --------------------------------------------------------------------------
-def _front_run(tmp: Path, work: Path, frames):
+def _front_run(tmp: Path, work: Path, frames, extra=None):
     """run_all's prepare_front_results stage on one front video, written
-    with the port's write_video (OpenCV) on the first call; returns the
-    stage's time from ``pipeline_timing.json``."""
+    with the port's write_video (OpenCV) on the first call, with ``extra``
+    run_all keys (the sam3 configuration's detector and checkpoints);
+    returns the stage's time from ``pipeline_timing.json``."""
     from skix_torch.pipelines.run_all import main as run_all
 
     video_root = tmp / "front_raw"
@@ -851,12 +982,17 @@ def _front_run(tmp: Path, work: Path, frames):
         write_video(video_root / "p01" / "clip.mp4", frames, fps=10)
     run_all({"paths": {"pt_root": str(tmp), "work_root": str(work),
                        "video_root": str(video_root)},
-             "stages": ["prepare_front_results"], "device": "cuda"})
+             "stages": ["prepare_front_results"], "device": "cuda",
+             **(extra or {})})
     timing = json.loads((work / "pipeline_timing.json").read_text())
     return timing["prepare_front_results"]["total_s"]
 
 
-def front_phase(tmp: Path):
+def front_phase(tmp: Path, phase: str = "front", extra=None,
+                per_frame_by_style=None):
+    """``front`` (the stage's defaults) or ``front_sam3`` (``extra``: the
+    sam3 detector, its checkpoint and the CLIP checkpoint; launches also
+    checked by rope style)."""
     import numpy as np
     import torch
 
@@ -864,70 +1000,81 @@ def front_phase(tmp: Path):
 
     frames = np.random.default_rng(3).integers(
         0, 255, (FRONT_T, *FRONT_HW, 3), dtype=np.uint8)
-    work = tmp / "front_work"
+    work = tmp / f"{phase}_work"
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    A.LAUNCHES.clear()
+    reset_counts()
     t0 = time.perf_counter()
-    stage_s = _front_run(tmp, work, frames)
+    stage_s = _front_run(tmp, work, frames, extra)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(A.LAUNCHES)
+    launches, by_style = dict(A.LAUNCHES), dict(A.LAUNCHES_BY_STYLE)
 
     out = work / "front" / "p01"
     summary = work / "front" / "front_summary.json"
     if not summary.exists():
-        fail(f"front: no {summary}")
+        fail(f"{phase}: no {summary}")
     want = {"person_masks.npy": ((FRONT_T, 16, *FRONT_HW), bool),
             "person_bboxes.npy": ((FRONT_T, 4), np.float32)}
     for name, (shape, dtype) in want.items():
         if not (out / name).exists():
-            fail(f"front: the stage wrote no {name} (its per-video errors "
+            fail(f"{phase}: the stage wrote no {name} (its per-video errors "
                  "are logged, not raised)")
         a = np.load(out / name)
         if a.shape != shape or a.dtype != dtype:
-            fail(f"front: {name} is {a.shape} {a.dtype}, not {shape} {dtype}")
+            fail(f"{phase}: {name} is {a.shape} {a.dtype}, not {shape} "
+                 f"{dtype}")
         if a.dtype != bool and not np.isfinite(a).all():
-            fail(f"front: {name} is not finite")
+            fail(f"{phase}: {name} is not finite")
     for p in FRONT_PROMPTS[1:]:
         for kind in ("masks", "bboxes", "scores", "tracker_scores", "active",
                      "obj_ids"):
             if not (out / f"{p}_{kind}.npy").exists():
-                fail(f"front: no {p}_{kind}.npy")
+                fail(f"{phase}: no {p}_{kind}.npy")
     spans = json.loads((work / "front" / "front_timing.json").read_text())
     n = FRONT_T * len(FRONT_PROMPTS)
     expected = {k: n * v for k, v in FRONT_PER_FRAME.items()}
-    say("front", stage_s=round(stage_s, 3),
+    expected_style = {k: n * v for k, v in (per_frame_by_style or {}).items()}
+    clip = ({"clip_ms_per_prompt": spans["clip"]["mean_ms"],
+             "clip_prompts": spans["clip"]["count"]} if "clip" in spans else {})
+    say(phase, stage_s=round(stage_s, 3),
         wall_s=round(wall_s, 3),
         detector_ms_per_frame=spans["detector"]["mean_ms"],
         tracker_ms_per_frame=spans["tracker"]["mean_ms"],
-        outputs_ms_per_frame=spans["outputs"]["mean_ms"], frames=n,
+        outputs_ms_per_frame=spans["outputs"]["mean_ms"], **clip, frames=n,
         launches=json.dumps(launches).replace(" ", ""),
         expected_launches=json.dumps(expected).replace(" ", ""),
+        launches_by_style=json.dumps(by_style).replace(" ", ""),
         peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
         person_active_mean=float(np.load(out / "person_active.npy").mean()))
     if launches != expected:
-        fail(f"front: launches {launches}, expected {expected}")
-    return launches, frames
+        fail(f"{phase}: launches {launches}, expected {expected}")
+    if per_frame_by_style is not None and by_style != expected_style:
+        fail(f"{phase}: launches by style {by_style}, expected "
+             f"{expected_style}")
+    if extra and spans.get("clip", {}).get("count") != len(FRONT_PROMPTS):
+        fail(f"{phase}: the prompts did not go through the CLIP tower")
+    return launches, by_style, frames
 
 
-def front_profile_phase(tmp: Path, frames):
+def front_profile_phase(tmp: Path, frames, phase: str = "front", extra=None):
     """A warm rerun of the front stage, then one under ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
-    stage_s = _front_run(tmp, tmp / "front_warm", frames)
+    stage_s = _front_run(tmp, tmp / f"{phase}_warm", frames, extra)
     torch.cuda.synchronize()
-    spans = json.loads((tmp / "front_warm" / "front" / "front_timing.json"
+    spans = json.loads((tmp / f"{phase}_warm" / "front" / "front_timing.json"
                         ).read_text())
-    say("front_warm", stage_s=round(stage_s, 3),
+    say(f"{phase}_warm", stage_s=round(stage_s, 3),
         wall_s=round(time.perf_counter() - t0, 3),
         **{f"{k}_ms_mean": v["mean_ms"] for k, v in spans.items()})
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _front_run(tmp, tmp / "front_prof", frames)
+        _front_run(tmp, tmp / f"{phase}_prof", frames, extra)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -938,15 +1085,115 @@ def front_profile_phase(tmp: Path, frames):
                            if name in e.key) / 1e3
                  for name in ("single_tile_kernel", "flash_fwd_kernel")}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    say("front_profile", wall_ms=round(prof_wall_ms, 1),
+    say(f"{phase}_profile", wall_ms=round(prof_wall_ms, 1),
         device_busy_ms=round(busy_ms, 2),
         device_idle_share=round(1.0 - busy_ms / prof_wall_ms, 4),
         k2_ms=round(by_kernel["single_tile_kernel"], 2),
         k1_ms=round(by_kernel["flash_fwd_kernel"], 2),
         kernels_launched=sum(e.count for e in kernels))
-    say("front_profile_top", kernels=json.dumps(
+    say(f"{phase}_profile_top", kernels=json.dumps(
         [[e.key[:60], round(e.self_device_time_total / 1e3, 2), e.count]
          for e in top]).replace(" ", ""))
+
+
+# --------------------------------------------------------------------------
+# phase 7b: checkpoints of the sam3 configuration, in the reference layout
+# --------------------------------------------------------------------------
+def write_sam3_checkpoints(tmp: Path):
+    """Seeded state dicts in the layouts of the reference checkpoints,
+    through the port's converters into skix's checkpoint npz, which the
+    stages read: the full-size Sam3Detector of the sam3 configuration
+    (``null_prompt`` included, for training; the front stage ignores it),
+    whose ViT-Det trunk (1024 × 32, a pos_embed with its cls entry, no
+    patch bias) and fusion encoder (6 layers) come from reference-layout
+    dicts and whose other leaves are seeded; and a full-size VETextEncoder
+    (width 1024, 16 heads, 24 layers, context 32, vocabulary 49408). The
+    sizes are read from the port's modules. Returns the two paths."""
+    import torch
+
+    from skix_torch.convert import load_into, state_dict_to_flax
+    from skix_torch.pipelines.videopose3d import save_checkpoint
+    from skix_torch.tracking import clip_text
+    from skix_torch.tracking.sam3_detector import (Sam3Detector,
+                                                   convert_fusion_encoder)
+    from skix_torch.tracking.vitdet import convert_vitdet_state_dict
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def n(*shape, std=0.02, mean=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * std + mean
+
+    def ln(sd, key, dim):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = n(dim, mean=1.0), n(dim)
+
+    def lin(sd, key, out, inp):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = n(out, inp), n(out)
+
+    with torch.device("meta"):
+        det = Sam3Detector.full_size(null_prompt=True, **SAM3_DETECTOR)
+        enc = clip_text.VETextEncoder(d_model=det.d_model)
+    bb = det.backbone
+    C, grid, p = bb.embed_dim, bb.pos_embed.shape[1], bb.patch_size
+    hidden = bb.block_0.mlp.fc1.out_features
+    vit = {"patch_embed.proj.weight": n(C, 3, p, p),
+           "pos_embed": n(1, 1 + grid * grid, C)}
+    ln(vit, "ln_pre", C)
+    for i in range(bb.depth):
+        ln(vit, f"blocks.{i}.norm1", C)
+        ln(vit, f"blocks.{i}.norm2", C)
+        lin(vit, f"blocks.{i}.attn.qkv", 3 * C, C)
+        lin(vit, f"blocks.{i}.attn.proj", C, C)
+        lin(vit, f"blocks.{i}.mlp.fc1", hidden, C)
+        lin(vit, f"blocks.{i}.mlp.fc2", C, hidden)
+    d, ff = det.d_model, det.encoder.layer_0.ffn.linear1.out_features
+    fusion = {}
+    for i in range(det.encoder.num_layers):
+        pre = f"layers.{i}."
+        for name in ("norm1", "norm2", "norm3"):
+            ln(fusion, pre + name, d)
+        for name in ("self_attn", "cross_attn_image"):
+            fusion[pre + name + ".in_proj_weight"] = n(3 * d, d)
+            fusion[pre + name + ".in_proj_bias"] = n(3 * d)
+            lin(fusion, pre + name + ".out_proj", d, d)
+        lin(fusion, pre + "linear1", ff, d)
+        lin(fusion, pre + "linear2", d, ff)
+    det = det.to_empty(device=dev).init_weights(gen)
+    with torch.no_grad():
+        load_into(det.backbone, convert_vitdet_state_dict(vit))
+        load_into(det.encoder, convert_fusion_encoder(
+            fusion, det.encoder.num_layers))
+    det_path = tmp / "sam3_detector.npz"
+    save_checkpoint(det_path, state_dict_to_flax(det.state_dict()))
+    del det, vit, fusion
+
+    tower = enc.encoder
+    W = tower.token_embedding.embedding_dim
+    vocab = tower.token_embedding.num_embeddings
+    ve = {"encoder.token_embedding.weight": n(vocab, W),
+          "encoder.positional_embedding": n(enc.context_length, W, std=0.01)}
+    for i in range(tower.layers):
+        pre = f"encoder.transformer.resblocks.{i}."
+        ln(ve, pre + "ln_1", W)
+        ln(ve, pre + "ln_2", W)
+        ve[pre + "attn.in_proj_weight"] = n(3 * W, W)
+        ve[pre + "attn.in_proj_bias"] = n(3 * W)
+        lin(ve, pre + "attn.out_proj", W, W)
+        lin(ve, pre + "mlp.c_fc", 4 * W, W)
+        lin(ve, pre + "mlp.c_proj", W, 4 * W)
+    ln(ve, "encoder.ln_final", W)
+    lin(ve, "resizer", enc.resizer.out_features, W)
+    clip_path = tmp / "sam3_clip.npz"
+    save_checkpoint(clip_path, state_dict_to_flax(
+        clip_text.convert_ve_text_encoder(ve)))
+    del ve, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("sam3_checkpoints", seconds=round(time.perf_counter() - t0, 2),
+        detector_mb=round(det_path.stat().st_size / 2 ** 20, 1),
+        clip_mb=round(clip_path.stat().st_size / 2 ** 20, 1))
+    return det_path, clip_path
 
 
 # --------------------------------------------------------------------------
@@ -988,11 +1235,15 @@ def write_coco(root: Path, n: int, hw, seed: int) -> Path:
     return path
 
 
-def train_reference_phase(tmp: Path):
+def train_reference_phase(tmp: Path, sam3: bool = False):
     """One step of train_detector's loss and optimizer, tiny preset, on the
     card and on the CPU from the same weights and the same collated batch.
     The tiny trunk's head dim is 32: its window blocks (16 tokens) launch
-    K2 and K5, its global block K1, K3 and K4."""
+    K2 and K5, its global block K1, K3 and K4. ``sam3`` (phase
+    ``train_sam3_ref``): the detector in the sam3 configuration (the
+    interleaved rope in all five kernels) and the ``sam3`` optimizer scheme
+    with no warmup, so that the step moves the weights."""
+    import numpy as np
     import torch
 
     from skix_torch.config import config_from_mapping
@@ -1001,12 +1252,19 @@ def train_reference_phase(tmp: Path):
     from skix_torch.pipelines import train_detector as T
 
     torch.backends.cudnn.allow_tf32 = False
+    phase = "train_sam3_ref" if sam3 else "train_ref"
     root = tmp / "coco_ref"
-    jp = write_coco(root, 4, (96, 128), seed=2)
+    jp = root / "coco.json"
+    if not jp.exists():
+        write_coco(root, 4, (96, 128), seed=2)
     lr = 5e-4
-    cfg = config_from_mapping({"preset": "tiny", "lr": lr,
-                               "weight_decay": 1e-4, "grad_clip": 1.0,
-                               "dac": True, "loss": {"cls": "iabce"}})
+    body = {"preset": "tiny", "lr": lr, "weight_decay": 1e-4,
+            "grad_clip": 1.0, "dac": True, "loss": {"cls": "iabce"}}
+    if sam3:
+        body.update(model={"rope_style": "sam3", "pretrain_img_size": 56},
+                    optim={"scheme": "sam3", "warmup_steps": 0,
+                           "layer_decay": 0.9})
+    cfg = config_from_mapping(body)
     batch = next(iter(CocoLoader(CocoDataset(jp, image_root=root),
                                  batch_size=4, image_size=112, max_objects=4,
                                  seed=0)))
@@ -1015,45 +1273,87 @@ def train_reference_phase(tmp: Path):
     gpu = T.build_detector(cfg, "cuda")
     gpu.load_state_dict(cpu.state_dict())
     res = {}
+    # the CPU gradient of the batch in reverse order: the same loss in exact
+    # arithmetic, other rounding in every sum over the batch
+    loss_fn = T.make_loss_fn(cpu, cfg, 112)
+    loss_fn(T.batch_to({k: np.ascontiguousarray(v[::-1])
+                        for k, v in batch.items()}, "cpu"))[0].backward()
+    g_rev = {n: (p.grad.clone() if p.grad is not None
+                 else torch.zeros(p.shape)) for n, p in cpu.named_parameters()}
+    cpu.zero_grad(set_to_none=True)
     for name, model in (("cpu", cpu), ("cuda", gpu)):
         dev = next(model.parameters()).device
         opt = T.build_optimizer(cfg, model, 10)
-        A.LAUNCHES.clear()
+        reset_counts()
         loss, _, _ = T.make_loss_fn(model, cfg, 112)(T.batch_to(batch, dev))
         opt.zero_grad()
         loss.backward()
-        launches = dict(A.LAUNCHES)
+        launches = (dict(A.LAUNCHES), dict(A.LAUNCHES_BY_STYLE))
         grads = {n: (p.grad.detach().cpu().clone() if p.grad is not None
                      else torch.zeros(p.shape)) for n, p in
                  model.named_parameters()}
-        opt.step()
+        norm = opt.step()
         res[name] = (loss.item(), grads, launches,
-                     {n: p.detach().cpu() for n, p in model.named_parameters()})
-    (l_c, g_c, _, p_c), (l_g, g_g, launches, p_g) = res["cpu"], res["cuda"]
+                     {n: p.detach().cpu() for n, p in model.named_parameters()},
+                     norm)
+    (l_c, g_c, _, p_c, norm), (l_g, g_g, launches, p_g, _) = (res["cpu"],
+                                                              res["cuda"])
     # limits: f32 on both sides, sums in other orders (cuBLAS, the kernels,
     # MKL); each gradient leaf within 1e-4·max|g| + 1e-6 (g_err, the worst
     # leaf's error over its limit, ≤ 1); after Adam's first step (±lr where
-    # the sign holds), lr/50 where |g| > 1e-5
+    # the sign holds), lr/50 where |g| is above a floor. A leaf whose CPU
+    # gradient moves by more than NOISE_SHARE of its largest element when
+    # the batch is reversed is left out of the gradient check and listed:
+    # its exact gradient is 0 and both sides give rounding noise (the
+    # softmax-invariant biases: box-RPB output biases and attention key
+    # biases, each shifting every logit of a row by one constant); such
+    # leaves must hold at most 1 % of the gradient's elements. The
+    # parameter floor is 1e-5 in train_ref; in train_sam3_ref it is where
+    # the clipped gradient |g|·min(1, clip/norm) is above 1e-7, ten times
+    # Adam's eps, where the first step is within 10 % of ±lr: its loss, and
+    # so the global norm that clipping divides by, is larger than
+    # train_ref's, which brings |g| = 1e-5 below eps, where the step
+    # follows rounding-level differences of g linearly. The counts of
+    # compared leaves and elements are printed
+    skip = sorted(n for n in g_c if (g_rev[n] - g_c[n]).abs().max()
+                  > NOISE_SHARE * g_c[n].abs().max())
     ratio = {n: ((g_g[n] - g_c[n]).abs().max()
-                 / (1e-4 * g_c[n].abs().max() + 1e-6)).item() for n in g_c}
+                 / (1e-4 * g_c[n].abs().max() + 1e-6)).item()
+             for n in g_c if n not in skip}
     worst = sorted(ratio, key=ratio.get)[::-1][:3]
     g_err = ratio[worst[0]]
-    p_err = max(((p_g[n] - p_c[n]).abs()[g_c[n].abs() > 1e-5].max().item()
-                 if (g_c[n].abs() > 1e-5).any() else 0.0) for n in p_c)
+    total = sum(t.numel() for t in g_c.values())
+    skipped_elems = sum(g_c[n].numel() for n in skip)
+    floor = 1e-7 * max(1.0, norm) if sam3 else 1e-5
+    compared = sum(int((g_c[n].abs() > floor).sum()) for n in p_c)
+    p_err = max(((p_g[n] - p_c[n]).abs()[g_c[n].abs() > floor].max().item()
+                 if (g_c[n].abs() > floor).any() else 0.0) for n in p_c)
     loss_rel = abs(l_g - l_c) / abs(l_c)
     want = {"flash_fwd_single_tile_lse": 1, "flash_bwd_single_tile": 1,
             "flash_fwd_lse": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
-    say("train_ref", loss_cpu=l_c, loss_card=l_g, loss_rel=loss_rel,
-        grad_err_over_limit=g_err, param_err=p_err,
+    rope = "interleaved" if sam3 else "half"
+    want = (want, {f"{k}/{rope}": v for k, v in want.items()})
+    say(phase, loss_cpu=l_c, loss_card=l_g, loss_rel=loss_rel,
+        grad_norm=norm, grad_err_over_limit=g_err, param_err=p_err,
+        param_floor=floor, params_compared=f"{compared}/{total}",
+        grad_leaves_compared=f"{len(ratio)}/{len(g_c)}",
+        skipped=json.dumps({
+            n: [(g_g[n] - g_c[n]).abs().max().item(),
+                (g_rev[n] - g_c[n]).abs().max().item(),
+                g_c[n].abs().max().item()] for n in skip}).replace(" ", ""),
         worst_leaves=json.dumps([[n, ratio[n], (g_g[n] - g_c[n]).abs().max()
                                   .item(), g_c[n].abs().max().item()]
                                  for n in worst]).replace(" ", ""),
-        launches=json.dumps(launches).replace(" ", ""))
+        launches=json.dumps(launches[0]).replace(" ", ""),
+        launches_by_style=json.dumps(launches[1]).replace(" ", ""))
+    if skipped_elems > 0.01 * total:
+        fail(f"{phase}: {skipped_elems} of {total} gradient elements lie in "
+             f"rounding-noise leaves: the check would cover too little")
     if not (loss_rel <= 1e-5 and g_err <= 1.0 and p_err <= lr / 50):
-        fail(f"train_ref: card and CPU disagree (loss {loss_rel}, grads "
+        fail(f"{phase}: card and CPU disagree (loss {loss_rel}, grads "
              f"{g_err}, params {p_err})")
     if launches != want:
-        fail(f"train_ref: launches {launches}, expected {want}")
+        fail(f"{phase}: launches {launches}, expected {want}")
 
 
 # --------------------------------------------------------------------------
@@ -1068,7 +1368,11 @@ def _train_argv(tmp: Path):
                   f"steps={TRAIN_STEPS}", "log_every=1"]
 
 
-def train_phase(tmp: Path):
+def train_phase(tmp: Path, phase: str = "train", init_checkpoint=None):
+    """``train`` (configs/train_detector.yaml as it is) or, with
+    ``init_checkpoint``, ``train_sam3``: the same run with ``model:
+    SAM3_DETECTOR``, ``optim.scheme: sam3`` and the converted detector as
+    its initial weights, launches also checked by rope style."""
     import numpy as np
     import torch
 
@@ -1079,23 +1383,31 @@ def train_phase(tmp: Path):
 
     root, argv = _train_argv(tmp)
     t0 = time.perf_counter()
-    write_coco(root, TRAIN_IMAGES, TRAIN_HW, seed=4)
+    if not (root / "coco.json").exists():
+        write_coco(root, TRAIN_IMAGES, TRAIN_HW, seed=4)
     setup_s = time.perf_counter() - t0
+    cfg = load_config("train_detector", argv).to_dict()
+    ckpt = tmp / f"{phase}_ckpt"
+    cfg["paths"]["checkpoint_dir"] = str(ckpt)
+    if init_checkpoint is not None:
+        cfg["model"] = dict(SAM3_DETECTOR)
+        cfg["optim"]["scheme"] = "sam3"
+        cfg["init_checkpoint"] = str(init_checkpoint)
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    A.LAUNCHES.clear()
+    reset_counts()
     t0 = time.perf_counter()
-    run = T.main(argv)
+    run = T.main(cfg)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(A.LAUNCHES)
+    launches, by_style = dict(A.LAUNCHES), dict(A.LAUNCHES_BY_STYLE)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    ckpt = tmp / "train_ckpt"
     res = json.loads((ckpt / "final_eval.json").read_text())
     npz = ckpt / f"sam3_detector_{TRAIN_STEPS:06d}.npz"
     if not npz.exists():
-        fail(f"train: no {npz.name}")
+        fail(f"{phase}: no {npz.name}")
     # the key set of the converted tree of the same model (names and
     # shapes, from the port's own state_dict, no data copied)
     want = {}
@@ -1110,14 +1422,16 @@ def train_phase(tmp: Path):
     npz.unlink()
     # the eval loader yields len(fixture) // batch batches (at most 8),
     # before and after training
-    batch = int(load_config("train_detector", argv).batch_size)
-    n_eval = 2 * min(8, TRAIN_IMAGES // batch)
+    n_eval = 2 * min(8, TRAIN_IMAGES // int(cfg["batch_size"]))
     expected = {k: TRAIN_STEPS * v for k, v in TRAIN_PER_STEP.items()}
     expected.update({k: n_eval * v for k, v in TRAIN_PER_EVAL.items()})
+    expected_style = {k: TRAIN_STEPS * v for k, v in TRAIN_SAM3_PER_STEP.items()}
+    expected_style.update({k: n_eval * v
+                           for k, v in TRAIN_SAM3_PER_EVAL.items()})
     warm = run.steps[1:]
     split = {k: sum(s[k] for s in warm) / len(warm) * 1e3
              for k in ("data_s", "forward_s", "backward_s", "optimizer_s")}
-    say("train", wall_s=round(wall_s, 3), fixture_setup_s=round(setup_s, 3),
+    say(phase, wall_s=round(wall_s, 3), fixture_setup_s=round(setup_s, 3),
         steps=TRAIN_STEPS, final_loss=res.get("final_loss"),
         ap_before=res.get("ap_before"), ap_after=res.get("ap_after"),
         warm_step_ms=sum(split.values()),
@@ -1126,16 +1440,20 @@ def train_phase(tmp: Path):
         peak_mem_gib=round(peak_gib, 2), checkpoint_mb=round(ckpt_mb, 1),
         checkpoint_leaves=len(got),
         launches=json.dumps(launches).replace(" ", ""),
-        expected_launches=json.dumps(expected).replace(" ", ""))
+        expected_launches=json.dumps(expected).replace(" ", ""),
+        launches_by_style=json.dumps(by_style).replace(" ", ""))
     for k in ("final_loss", "ap_before", "ap_after"):
         if not (isinstance(res.get(k), float) and math.isfinite(res[k])):
-            fail(f"train: final_eval.json {k} = {res.get(k)}")
+            fail(f"{phase}: final_eval.json {k} = {res.get(k)}")
     if got != want:
-        fail(f"train: the checkpoint's keys/shapes differ from the model's "
+        fail(f"{phase}: the checkpoint's keys/shapes differ from the model's "
              f"converted tree ({len(got)} vs {len(want)} leaves)")
     if launches != expected:
-        fail(f"train: launches {launches}, expected {expected}")
-    return run, launches
+        fail(f"{phase}: launches {launches}, expected {expected}")
+    if init_checkpoint is not None and by_style != expected_style:
+        fail(f"{phase}: launches by style {by_style}, expected "
+             f"{expected_style}")
+    return run, launches, by_style
 
 
 def train_profile_phase(tmp: Path, run):
@@ -1258,26 +1576,50 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="skix_chip_smoke_") as tmpdir:
         tmp = Path(tmpdir)
+        paths = {}      # main path → (launches, launches by rope style)
         # 4. small-input reference, 5. the VGGT main path, warm, profiled
         reference_phase(tmp)
-        vggt_launches, cfg = main_phase(tmp)
+        *paths["vggt"], cfg = main_phase(tmp)
         profile_phase(tmp, cfg)
         # 6. the front stage, tiny, card against CPU
         front_reference_phase(tmp)
         # 7. the front main path, warm, profiled
-        front_launches, frames = front_phase(tmp)
+        *paths["front"], frames = front_phase(tmp)
         front_profile_phase(tmp, frames)
+        # 7b. the same in the sam3 configuration: the interleaved rope and
+        # the CLIP tower, tiny card against CPU, then at full size from
+        # converted reference-layout checkpoints, warm, profiled
+        from skix_torch.tracking.clip_tokenizer import PATTERN_MODULE
+
+        say("clip", tokenizer_pattern_module=PATTERN_MODULE)
+        front_reference_phase(tmp, sam3=True)
+        det_ckpt, clip_ckpt = write_sam3_checkpoints(tmp)
+        sam3 = {"front_detector": SAM3_DETECTOR,
+                "front_detector_checkpoint": str(det_ckpt),
+                "front_clip": {"checkpoint": str(clip_ckpt)}}
+        *paths["front_sam3"], _ = front_phase(tmp, "front_sam3", sam3,
+                                              FRONT_SAM3_PER_FRAME)
+        front_profile_phase(tmp, frames, "front_sam3", sam3)
+        clip_ckpt.unlink()
+        gc.collect()
         torch.cuda.empty_cache()
         # 8. one training step, tiny, card against CPU
         train_reference_phase(tmp)
         # 9. the training main path at full size, profiled
-        train_run, train_launches = train_phase(tmp)
+        train_run, *paths["train"] = train_phase(tmp)
         train_profile_phase(tmp, train_run)
+        del train_run
+        # 9b. the same in the sam3 configuration (the first run's model,
+        # optimizer and cached blocks freed first)
+        train_reference_phase(tmp, sam3=True)
+        train_run, *paths["train_sam3"] = train_phase(tmp, "train_sam3",
+                                                      det_ckpt)
         del train_run
 
     # 10. kernels line: per kernel (K1 and K2 per mode) its launches on
     # each main path, and the times of its case at the path's largest
-    # shape; every case checked above passed its tolerance
+    # shape; under "modes", per rope style its launches and checks. Every
+    # case checked above passed its tolerance
     headline = {"flash_fwd": "vggt_global", "flash_fwd_lse": "memory_tracker",
                 "flash_fwd_single_tile": "vitdet_window",
                 "flash_fwd_single_tile_lse": "vitdet_window_train",
@@ -1288,22 +1630,33 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
         h = next(r for r in mine if r["case"] == headline[name])
-        by_path = {"vggt": vggt_launches.get(name, 0),
-                   "front": front_launches.get(name, 0),
-                   "train": train_launches.get(name, 0)}
+        by_path = {p: launches.get(name, 0)
+                   for p, (launches, _) in paths.items()}
+        modes = {}
+        for style in ("none", "half", "interleaved", "segments"):
+            checks = [r for r in mine if r["rope"] == style]
+            n = sum(by_style.get(f"{name}/{style}", 0)
+                    for _, by_style in paths.values())
+            if checks or n:
+                modes[style] = {
+                    "launches": n,
+                    "max_abs_err": max((r["max_abs_err"] for r in checks),
+                                       default=None),
+                    "cases": [r["case"] for r in checks]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
+            "launches_by_path": by_path, "modes": modes,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
             "bound_by": h["bound_by"], "library_ms": h["library_ms"],
             "case": h["case"], "shape_q": h["shape_q"], "Sk": h["Sk"],
             "dtype": h["dtype"],
             "checks": [{k: r.get(k) for k in (
-                "case", "shape_q", "Sk", "dtype", "max_abs_err", "errs",
-                "grad_scale", "lse_max_abs_err", "tol", "ms", "plain_ms",
-                "library_ms", "bound_ms", "bound_by")} for r in mine]})
+                "case", "shape_q", "Sk", "dtype", "rope", "max_abs_err",
+                "errs", "grad_scale", "lse_max_abs_err", "tol", "ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                for r in mine]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -15,9 +15,12 @@ per leaf, not a name table:
   flipped in space, as flax does not flip it;
 - a LayerNorm or GroupNorm ``scale`` becomes ``weight``; ``bias`` stays
   ``bias``;
+- an Embed's ``embedding`` (vocab, width) becomes the ``weight`` of an
+  ``nn.Embedding`` (the CLIP tower's ``token_embedding``), as it is;
 - every other leaf (``camera_token``, ``register_token``,
   ``empty_pose_tokens``, ``gamma``, ``pos_embed``, ``query_pos``,
-  ``init_boxes``, ``label_embed``, ``null_prompt``) is copied as it is.
+  ``init_boxes``, ``label_embed``, ``null_prompt``,
+  ``positional_embedding``, ``text_projection``) is copied as it is.
 
 The tree comes as nested dicts of arrays (``{"params": {...}}`` or the
 ``params`` subtree itself) or as the flat ``"params/a/b/kernel"`` npz that
@@ -26,7 +29,8 @@ numpy only, so a machine without JAX loads a skix checkpoint.
 
 :func:`state_dict_to_flax` is the inverse bridge (a trained port module →
 skix's ``params``): every rule above backwards, decided by the name and rank
-of each torch leaf. A 2-D ``weight`` is a Dense kernel (transposed back);
+of each torch leaf. A 2-D ``weight`` is a Dense kernel (transposed back),
+except under a module whose name ends in ``embedding`` (an Embed's table);
 a 4-D ``weight`` a Conv or ConvTranspose kernel (OIHW back to HWIO; the
 port stores a ConvTranspose kernel unflipped and flips it where it applies
 it, so no flip is undone here); a 1-D ``weight`` a LayerNorm or GroupNorm
@@ -73,7 +77,7 @@ def _torch_leaf(name: str, arr: np.ndarray, module: str = ""
         if arr.ndim == 4:
             return "weight", arr.transpose(3, 2, 0, 1)
         raise ValueError(f"kernel of rank {arr.ndim} has no rule")
-    if name == "scale":
+    if name in ("scale", "embedding"):
         return "weight", arr
     if name == "bias" and arr.ndim == 2:
         return name, arr.reshape(-1)
@@ -113,9 +117,13 @@ def load_into(module: torch.nn.Module, state_dict: Mapping[str, torch.Tensor]
     return list(unexpected)
 
 
-def flax_leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
-    """The flax leaf name and array of one torch leaf (inverse rules)."""
+def flax_leaf(name: str, arr: np.ndarray, module: str = ""
+              ) -> tuple[str, np.ndarray]:
+    """The flax leaf name and array of one torch leaf (inverse rules);
+    ``module`` is the name of the leaf's module."""
     if name == "weight":
+        if arr.ndim == 2 and module.endswith("embedding"):
+            return "embedding", arr
         if arr.ndim == 2:
             return "kernel", arr.T
         if arr.ndim == 4:
@@ -124,6 +132,17 @@ def flax_leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
             return "scale", arr
         raise ValueError(f"weight of rank {arr.ndim} has no rule")
     return name, arr
+
+
+def flax_path(key: str, shape) -> str:
+    """The flax path (``"a/b/kernel"``, no ``params`` level) of the port's
+    ``state_dict`` key ``key`` whose tensor has ``shape``: the name map of
+    :func:`state_dict_to_flax`, for rules that match skix's paths (the
+    ``sam3`` optimizer scheme's patterns)."""
+    parts = key.split(".")
+    leaf, _ = flax_leaf(parts[-1], np.broadcast_to(np.float32(0), tuple(shape)),
+                        parts[-2] if len(parts) > 1 else "")
+    return "/".join(parts[:-1] + [leaf])
 
 
 def state_dict_to_flax(state_dict: Mapping[str, Any],
@@ -147,7 +166,8 @@ def state_dict_to_flax(state_dict: Mapping[str, Any],
                if isinstance(value, torch.Tensor)
                else np.asarray(value, np.float32))
         parts = key.split(".")
-        leaf, arr = flax_leaf(parts[-1], arr)
+        leaf, arr = flax_leaf(parts[-1], arr,
+                              parts[-2] if len(parts) > 1 else "")
         path = parts[:-1] + [leaf]
         want = shapes.get("/".join(path))
         if want is not None and tuple(want) != arr.shape:

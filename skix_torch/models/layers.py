@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from skix_torch.ops.attention import flash_attention
+from skix_torch.ops.attention import RopeTables, flash_attention
 
 
 # --------------------------------------------------------------------------
@@ -131,9 +131,12 @@ class LayerScale(nn.Module):
 class MultiHeadAttention(nn.Module):
     """Self-attention with optional QK-LayerNorm; the core runs through
     :func:`skix_torch.ops.attention.flash_attention`. ``rope`` is a
-    ``(cos, sin)`` pair of (N, head_dim) tables shared by every batch row
-    (the VGGT layouts, the ViT-Det window-local and global grids): the
-    kernel applies it to q and k. ``attn_block`` is skix's explicit tile
+    :class:`~skix_torch.ops.attention.RopeTables` (or a ``(cos, sin)``
+    pair, style rotate-half) of (N, head_dim) tables shared by every batch
+    row (the VGGT layouts, the ViT-Det window-local and global grids): the
+    kernel applies it to q and k in its style (skix passes the
+    interleaved style through an ``attn_fn``; the port passes it with the
+    tables). ``attn_block`` is skix's explicit tile
     edge: a sequence of exactly that length is one tile, which sends the
     call to the single-tile kernel (K2)."""
 
@@ -163,11 +166,13 @@ class MultiHeadAttention(nn.Module):
         if self.q_norm is not None:
             q = self.q_norm(q)
             k = self.k_norm(k)
-        cos, sin = rope if rope is not None else (None, None)
+        cos, sin, rotate = (RopeTables(*rope) if rope is not None
+                            else RopeTables(None, None))
         blk = self.attn_block
         out = flash_attention(q, k, v, fixed_max=self.attn_fixed_max,
                               rope_cos=cos, rope_sin=sin, block_q=blk,
-                              block_k_major=blk, block_k=blk)
+                              block_k_major=blk, block_k=blk,
+                              rope_rotate=rotate)
         return self.proj(out.transpose(1, 2).reshape(B, N, C))
 
 

@@ -44,7 +44,11 @@ kernels' arithmetic and roundings (not torch autograd):
 :func:`attention_backward_single_tile_reference` (K5) and
 :func:`attention_backward_reference` (K3/K4) for the backward:
 
-- rope in f32 (``x∘cos + rot(x)∘sin``), then q times ``sm_scale·log2e``,
+- rope in f32 (``x∘cos + rot(x)∘sin``, rot the signed permutation of the
+  style: rotate-half, interleaved pairs or rotate-half per segment; the
+  kernels apply rotate-half by index and take the other styles as one
+  int32 code per column, sign·(partner + 1)), then q times
+  ``sm_scale·log2e``,
   then both q and k rounded to the input dtype (the backward rounds the
   roped q and the scaled q separately, as its TPU kernels do);
 - scores in f32, softmax in base 2 (``exp2``), with a fixed bound in
@@ -58,14 +62,17 @@ kernels' arithmetic and roundings (not torch autograd):
   rope dK and dQ are un-rotated as ``x∘cos − rot(x)∘sin``. That is the
   rope's true gradient only for a pair-symmetric sin table
   (``sin[s, j] == sin[s, partner(j)]``, skix's docstring ``:1089-1098``),
-  which :func:`rope_2d_tables` builds.
+  which :func:`rope_2d_tables`, :func:`interleaved_rope_tables` and
+  :func:`rope_3d_tables` build.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -77,8 +84,11 @@ _LOG2E = math.log2(math.e)
 # "flash_fwd" and, with its lse output (training, or
 # flash_attention_with_lse), "flash_fwd_lse"; K2 as "flash_fwd_single_tile"
 # and "flash_fwd_single_tile_lse"; K3 as "flash_bwd_dkv", K4 as
-# "flash_bwd_dq", K5 as "flash_bwd_single_tile".
+# "flash_bwd_dq", K5 as "flash_bwd_single_tile". LAUNCHES_BY_STYLE counts
+# the same launches under "<key>/<rope style>", the style one of "none",
+# "half", "interleaved" and "segments".
 LAUNCHES: collections.Counter = collections.Counter()
+LAUNCHES_BY_STYLE: collections.Counter = collections.Counter()
 
 _KERNEL_HEAD_DIMS = (32, 64, 128)
 _MAX_SMEM_PER_BLOCK = 232448     # H100: 227 KB of dynamic shared memory
@@ -86,37 +96,105 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # --------------------------------------------------------------------------
-# rotary embedding tables (rotate-half within each half of D)
+# rotary embedding: the rotation styles and their tables
 # --------------------------------------------------------------------------
 def rotate_half_matrix(d: int, num_halves: int = 2) -> np.ndarray:
     """Signed-permutation matrix R with ``x @ R == rotate_half(x)`` applied
     within each of ``num_halves`` contiguous D segments (the VGGT 2D-rope
-    convention). The port applies R by index (:func:`rotate_half`); the
-    matrix is kept to state the convention and to test it."""
+    convention). The port applies R by index (:func:`rotate`); the matrix
+    is kept to state the convention and to test it."""
     assert d % num_halves == 0
-    m = d // num_halves
-    assert m % 2 == 0
+    return segmented_rotate_half_matrix(d, (d // num_halves,) * num_halves)
+
+
+def interleaved_rotate_matrix(d: int) -> np.ndarray:
+    """Signed permutation of the interleaved-pair convention (the SAM3
+    ViT-Det rope): ``y[2i] = -x[2i+1], y[2i+1] = x[2i]`` as ``x @ R``."""
+    assert d % 2 == 0
     R = np.zeros((d, d), np.float32)
-    for h in range(num_halves):
-        o = h * m
+    for i in range(d // 2):
+        R[2 * i + 1, 2 * i] = -1.0
+        R[2 * i, 2 * i + 1] = 1.0
+    return R
+
+
+def segmented_rotate_half_matrix(d: int, segments) -> np.ndarray:
+    """Rotate-half independently within contiguous segments of sizes
+    ``segments`` (the MMDiT 3D-rope convention, one segment per (t, y, x)
+    axis); features past ``sum(segments)`` are untouched (their table
+    columns carry sin = 0)."""
+    R = np.zeros((d, d), np.float32)
+    o = 0
+    for m in segments:
+        assert m % 2 == 0 and o + m <= d
         for j in range(m // 2):
             R[o + j + m // 2, o + j] = -1.0   # y[j]      = -x[j + m/2]
             R[o + j, o + j + m // 2] = 1.0    # y[m/2 + j] = x[j]
+        o += m
     return R
+
+
+def _style_key(style):
+    """A hashable rope style: ``"half"``, ``"interleaved"`` or
+    ``("segments", (m0, m1, ...))``."""
+    if style in ("half", "interleaved"):
+        return style
+    if isinstance(style, (tuple, list)) and len(style) == 2 \
+            and style[0] == "segments":
+        return ("segments", tuple(int(m) for m in style[1]))
+    raise ValueError(f"unknown rope_rotate style: {style!r}")
+
+
+def style_name(style) -> str:
+    """``"half"``, ``"interleaved"`` or ``"segments"``: the launch-count
+    label of a rope style."""
+    return _style_key(style) if isinstance(style, str) else "segments"
+
+
+def rot_matrix(d: int, style) -> np.ndarray:
+    """The signed permutation R of ``style`` (``rot(x) = x @ R``)."""
+    style = _style_key(style)
+    if style == "half":
+        return rotate_half_matrix(d)
+    if style == "interleaved":
+        return interleaved_rotate_matrix(d)
+    return segmented_rotate_half_matrix(d, style[1])
+
+
+@functools.lru_cache(maxsize=32)
+def rotation_table(d: int, style) -> tuple[np.ndarray, np.ndarray]:
+    """R of ``style`` by index: ``rot(x)[j] = sign[j] * x[partner[j]]``,
+    ``partner`` (d,) int64 and ``sign`` (d,) float32 in {-1, 0, 1}; sign 0
+    marks an untouched column (a segments tail), whose partner is itself.
+    Every style's R is a signed permutation with Rᵀ = −R."""
+    R = rot_matrix(d, _style_key(style))
+    partner = np.arange(d)
+    sign = np.zeros(d, np.float32)
+    for j in range(d):
+        (rows,) = np.nonzero(R[:, j])
+        if len(rows):
+            partner[j], sign[j] = rows[0], R[rows[0], j]
+    return partner, sign
+
+
+def rotate(x: torch.Tensor, style="half") -> torch.Tensor:
+    """``x @ rot_matrix(D, style)`` by index along the last axis (exact)."""
+    partner, sign = rotation_table(x.shape[-1], _style_key(style))
+    return x[..., torch.as_tensor(partner, device=x.device)] \
+        * torch.as_tensor(sign, device=x.device, dtype=x.dtype)
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
     """``x @ rotate_half_matrix(D)`` by index: within each half of the last
     axis, ``y[j] = -x[j + m/2]`` and ``y[m/2 + j] = x[j]`` (exact)."""
-    D = x.shape[-1]
-    a, b, c, d = x.split(D // 4, dim=-1)
-    return torch.cat([-b, a, -d, c], dim=-1)
+    return rotate(x, "half")
 
 
 def rope_2d_tables(pos: torch.Tensor, d: int, base_freq: float):
     """Full-width cos/sin tables for the 2D rope: ``pos (N, 2)`` integer
     (y, x) coords → ``(cos, sin)`` each (N, d) float32; the first d/2
-    features carry the y rotation, the second the x rotation."""
+    features carry the y rotation, the second the x rotation. Style
+    ``"half"``."""
     half = d // 2
     exponents = torch.arange(0, half, 2, dtype=torch.float32,
                              device=pos.device) / half
@@ -127,15 +205,58 @@ def rope_2d_tables(pos: torch.Tensor, d: int, base_freq: float):
     return torch.cos(angles), torch.sin(angles)
 
 
-def _rope_f32(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+def interleaved_rope_tables(angles: torch.Tensor):
+    """Per-pair angles (N, D/2) → full-width (cos, sin) tables (N, D) for
+    style ``"interleaved"``: both rows of a pair read one angle, so the sin
+    table is pair-symmetric."""
+    return (torch.repeat_interleave(torch.cos(angles), 2, dim=-1),
+            torch.repeat_interleave(torch.sin(angles), 2, dim=-1))
+
+
+def rope_3d_tables(pos: torch.Tensor, d: int, axes_dim,
+                   base_freq: float = 10000.0):
+    """Full-width cos/sin tables for the 3D rope (the MMDiT convention):
+    ``pos (N, 3)`` (t, y, x) coords; segment ``i`` of width ``axes_dim[i]``
+    rotates with axis ``i``'s positions (rotate-half within the segment);
+    tail features stay untouched (cos 1, sin 0). Use with
+    ``rope_rotate=("segments", tuple(axes_dim))``."""
+    parts_c, parts_s = [], []
+    for ax, m in enumerate(axes_dim):
+        exponents = torch.arange(0, m, 2, dtype=torch.float32,
+                                 device=pos.device) / m
+        inv_freq = 1.0 / (base_freq ** exponents)      # (m/2,)
+        ang = pos[..., ax:ax + 1].to(torch.float32) * inv_freq
+        ang = torch.cat([ang, ang], dim=-1)            # (N, m)
+        parts_c.append(torch.cos(ang))
+        parts_s.append(torch.sin(ang))
+    tail = d - sum(axes_dim)
+    if tail:
+        N = pos.shape[0]
+        parts_c.append(torch.ones((N, tail), device=pos.device))
+        parts_s.append(torch.zeros((N, tail), device=pos.device))
+    return torch.cat(parts_c, dim=-1), torch.cat(parts_s, dim=-1)
+
+
+class RopeTables(NamedTuple):
+    """Rope tables with their rotation style, as models pass them to
+    attention: ``cos``/``sin`` (S, D) float32 and ``rotate`` (``"half"``,
+    ``"interleaved"`` or ``("segments", axes)``). A plain ``(cos, sin)``
+    pair is style ``"half"``."""
+    cos: torch.Tensor
+    sin: torch.Tensor
+    rotate: object = "half"
+
+
+def _rope_f32(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+              style="half"):
     xf = x.to(torch.float32)
-    return xf * cos + rotate_half(xf) * sin
+    return xf * cos + rotate(xf, style) * sin
 
 
-def apply_rope_tables(x, cos, sin):
+def apply_rope_tables(x, cos, sin, rope_rotate="half"):
     """Rope from tables, ``x (B, H, S, D)``, tables ``(S, D)``; computed in
     f32 and cast back to x's dtype."""
-    return _rope_f32(x, cos, sin).to(x.dtype)
+    return _rope_f32(x, cos, sin, rope_rotate).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -144,17 +265,19 @@ def apply_rope_tables(x, cos, sin):
 def attention_reference(q, k, v, sm_scale: float | None = None,
                         fixed_max: float | None = None,
                         rope_cos=None, rope_sin=None,
-                        return_lse: bool = False):
+                        return_lse: bool = False, rope_rotate="half"):
     """Plain PyTorch K1, shapes ``(B, H, S, D)`` → ``(B, H, Sq, D)``, with
     f32 statistics and the kernel's roundings (module docstring); with
-    ``return_lse`` also the base-2 lse ``(B, H, Sq)`` f32."""
+    ``return_lse`` also the base-2 lse ``(B, H, Sq)`` f32. ``rope_rotate``
+    is the rope's style (:func:`rot_matrix`), applied by index."""
     dt = q.dtype
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     scale_log2 = float(np.float32(sm_scale * _LOG2E))
     if rope_cos is not None:
-        qf = _rope_f32(q, rope_cos, rope_sin)
-        kf = _rope_f32(k, rope_cos, rope_sin).to(dt).to(torch.float32)
+        qf = _rope_f32(q, rope_cos, rope_sin, rope_rotate)
+        kf = _rope_f32(k, rope_cos, rope_sin, rope_rotate).to(dt).to(
+            torch.float32)
     else:
         qf = q.to(torch.float32)
         kf = k.to(torch.float32)
@@ -179,19 +302,21 @@ def attention_reference(q, k, v, sm_scale: float | None = None,
 def attention_single_tile_reference(q, k, v, sm_scale: float | None = None,
                                     fixed_max: float | None = None,
                                     rope_cos=None, rope_sin=None,
-                                    return_lse: bool = False):
+                                    return_lse: bool = False,
+                                    rope_rotate="half"):
     """Plain PyTorch K2: the exact one-pass softmax of a sequence that is
     one tile. Its arithmetic and roundings are K1's without the online
     rescaling, which the plain K1 never had: the whole score row is formed,
     its max taken, exp2, summed, p rounded to v's type before P·V. So it is
     :func:`attention_reference` on the same arguments."""
     return attention_reference(q, k, v, sm_scale, fixed_max, rope_cos,
-                               rope_sin, return_lse)
+                               rope_sin, return_lse, rope_rotate)
 
 
 def attention_backward_reference(q, k, v, do, lse, di,
                                  sm_scale: float | None = None,
-                                 rope_cos=None, rope_sin=None):
+                                 rope_cos=None, rope_sin=None,
+                                 rope_rotate="half"):
     """Plain PyTorch K3 + K4: ``(dq, dk, dv)`` of the attention whose
     forward wrote ``lse (B, H, Sq)`` (base 2), given the output gradient
     ``do`` (q's shape) and ``di = Σ_d o·do`` (B, H, Sq) f32. The whole
@@ -203,8 +328,10 @@ def attention_backward_reference(q, k, v, do, lse, di,
     scale = float(np.float32(sm_scale))
     scale_log2 = float(np.float32(sm_scale * _LOG2E))
     if rope_cos is not None:
-        qr = _rope_f32(q, rope_cos, rope_sin).to(dt).to(torch.float32)
-        kr = _rope_f32(k, rope_cos, rope_sin).to(dt).to(torch.float32)
+        qr = _rope_f32(q, rope_cos, rope_sin, rope_rotate).to(dt).to(
+            torch.float32)
+        kr = _rope_f32(k, rope_cos, rope_sin, rope_rotate).to(dt).to(
+            torch.float32)
     else:
         qr, kr = q.to(torch.float32), k.to(torch.float32)
     qs = (qr * scale_log2).to(dt).to(torch.float32)
@@ -216,19 +343,20 @@ def attention_backward_reference(q, k, v, do, lse, di,
     dq = torch.matmul(ds, kr) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qr) * scale
     if rope_cos is not None:
-        dq = dq * rope_cos - rotate_half(dq) * rope_sin
-        dk = dk * rope_cos - rotate_half(dk) * rope_sin
+        dq = dq * rope_cos - rotate(dq, rope_rotate) * rope_sin
+        dk = dk * rope_cos - rotate(dk, rope_rotate) * rope_sin
     return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_backward_single_tile_reference(q, k, v, do, lse, di,
                                              sm_scale: float | None = None,
-                                             rope_cos=None, rope_sin=None):
+                                             rope_cos=None, rope_sin=None,
+                                             rope_rotate="half"):
     """Plain PyTorch K5: dQ, dK and dV of a one-tile sequence in one exact
     pass. K5's arithmetic and roundings are K3's and K4's on a single tile,
     so it is :func:`attention_backward_reference` on the same arguments."""
     return attention_backward_reference(q, k, v, do, lse, di, sm_scale,
-                                        rope_cos, rope_sin)
+                                        rope_cos, rope_sin, rope_rotate)
 
 
 def is_single_tile(Sq: int, Sk: int, block_q, block_k_major, block_k
@@ -278,10 +406,10 @@ def _kernel_lib(source: str):
                 continue
             fn = getattr(lib, entry)
             if kind == _FWD:
-                fn.argtypes = ([ptr] * 7 + [i32] * 6 + [i64] * 12
+                fn.argtypes = ([ptr] * 8 + [i32] * 6 + [i64] * 12
                                + [f32, i32, f32, ptr])
             else:
-                fn.argtypes = [ptr] * 11 + [i32] * 6 + [ptr, f32, f32, ptr]
+                fn.argtypes = [ptr] * 12 + [i32] * 6 + [ptr, f32, f32, ptr]
             fn.restype = i32
             getattr(lib, errs).argtypes = [i32]
             getattr(lib, errs).restype = ctypes.c_char_p
@@ -292,9 +420,20 @@ def _kernel_lib(source: str):
     return lib
 
 
-def _check_args(q, k, v, rope_cos, rope_sin):
-    """Validate what the kernels take; returns unit-stride q, k, v and the
-    rope tables as f32 on q's device."""
+@functools.lru_cache(maxsize=32)
+def _rotation_codes(d: int, style, device: torch.device) -> torch.Tensor:
+    """The kernels' form of :func:`rotation_table`: one int32 per column on
+    ``device``, ``sign * (partner + 1)`` (0: the column is not rotated)."""
+    partner, sign = rotation_table(d, style)
+    codes = (sign * (partner + 1)).astype(np.int32)
+    return torch.as_tensor(codes, device=device)
+
+
+def _check_args(q, k, v, rope_cos, rope_sin, rope_rotate="half"):
+    """Validate what the kernels take; returns unit-stride q, k, v, the
+    rope tables as f32 on q's device and the rotation codes of the rope's
+    style (None without rope, and for rotate-half, which the kernels
+    apply by index, without a table read)."""
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
         raise TypeError(f"q, k, v must share one dtype of {list(_DTYPE_CODES)}"
                         f"; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -322,7 +461,10 @@ def _check_args(q, k, v, rope_cos, rope_sin):
             for t in (rope_cos, rope_sin))
         if rope_cos.shape != (Sq, D) or rope_sin.shape != (Sq, D):
             raise ValueError(f"rope tables must be ({Sq}, {D})")
-    return q, k, v, rope_cos, rope_sin
+        style = _style_key(rope_rotate)
+        return (q, k, v, rope_cos, rope_sin, None if style == "half"
+                else _rotation_codes(D, style, q.device))
+    return q, k, v, None, None, None
 
 
 def _empty_like_heads(x):
@@ -333,12 +475,19 @@ def _empty_like_heads(x):
                        device=x.device).transpose(1, 2)
 
 
+def _count(key: str, rope_cos, rope_rotate) -> None:
+    LAUNCHES[key] += 1
+    style = "none" if rope_cos is None else style_name(rope_rotate)
+    LAUNCHES_BY_STYLE[f"{key}/{style}"] += 1
+
+
 def _launch(kernel: str, q, k, v, sm_scale, fixed_max, rope_cos, rope_sin,
-            with_lse: bool):
+            with_lse: bool, rope_rotate="half"):
     """Launch K1 (``flash_fwd``) or K2 (``flash_fwd_single_tile``) on q's
     stream; returns ``o`` or ``(o, lse)``. Raises on anything the kernel
     does not take and on a failed launch."""
-    q, k, v, rope_cos, rope_sin = _check_args(q, k, v, rope_cos, rope_sin)
+    q, k, v, rope_cos, rope_sin, rot = _check_args(q, k, v, rope_cos,
+                                                   rope_sin, rope_rotate)
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     source, entry, errs, _ = _KERNELS[kernel]
@@ -359,6 +508,7 @@ def _launch(kernel: str, q, k, v, sm_scale, fixed_max, rope_cos, rope_sin,
             lse.data_ptr() if with_lse else None,
             rope_cos.data_ptr() if rope_cos is not None else None,
             rope_sin.data_ptr() if rope_sin is not None else None,
+            rot.data_ptr() if rot is not None else None,
             B, H, Sq, Sk, D, _DTYPE_CODES[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], float(np.float32(sm_scale * _LOG2E)), int(fixed),
@@ -367,18 +517,19 @@ def _launch(kernel: str, q, k, v, sm_scale, fixed_max, rope_cos, rope_sin,
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: "
                            + getattr(lib, errs)(err).decode())
-    LAUNCHES[kernel + ("_lse" if with_lse else "")] += 1
+    _count(kernel + ("_lse" if with_lse else ""), rope_cos, rope_rotate)
     return (o, lse) if with_lse else o
 
 
 def _launch_backward(kernels, q, k, v, do, lse, di, sm_scale, rope_cos,
-                     rope_sin):
+                     rope_sin, rope_rotate="half"):
     """Launch the backward kernels named in ``kernels`` (``flash_bwd_dkv``
     and ``flash_bwd_dq``, K3 and K4, one after the other; or
     ``flash_bwd_single_tile``, K5) on q's stream; returns ``(dq, dk, dv)``.
     ``lse`` and ``di`` are (B, H, Sq) f32. Raises on anything the kernels
     do not take and on a failed launch."""
-    q, k, v, rope_cos, rope_sin = _check_args(q, k, v, rope_cos, rope_sin)
+    q, k, v, rope_cos, rope_sin, rot = _check_args(q, k, v, rope_cos,
+                                                   rope_sin, rope_rotate)
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     do = do.to(q.dtype)
@@ -405,13 +556,14 @@ def _launch_backward(kernels, q, k, v, do, lse, di, sm_scale, rope_cos,
                 dv.data_ptr(),
                 rope_cos.data_ptr() if rope_cos is not None else None,
                 rope_sin.data_ptr() if rope_sin is not None else None,
+                rot.data_ptr() if rot is not None else None,
                 B, H, Sq, Sk, D, _DTYPE_CODES[q.dtype], strides,
                 float(np.float32(sm_scale)),
                 float(np.float32(sm_scale * _LOG2E)), stream)
         if err != 0:
             raise RuntimeError(f"{kernel} launch failed: "
                                + getattr(lib, errs)(err).decode())
-        LAUNCHES[kernel] += 1
+        _count(kernel, rope_cos, rope_rotate)
     return dq, dk, dv
 
 
@@ -425,17 +577,17 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, rope_cos, rope_sin, sm_scale, fixed_max,
-                single):
+                single, rope_rotate):
         grad = any(ctx.needs_input_grad[:3])
         if q.device.type == "cuda":
             out = _launch("flash_fwd_single_tile" if single else "flash_fwd",
                           q, k, v, sm_scale, fixed_max, rope_cos, rope_sin,
-                          grad)
+                          grad, rope_rotate)
         elif q.device.type == "cpu":
             plain = (attention_single_tile_reference if single
                      else attention_reference)
             out = plain(q, k, v, sm_scale, fixed_max, rope_cos, rope_sin,
-                        return_lse=grad)
+                        return_lse=grad, rope_rotate=rope_rotate)
         else:
             raise ValueError(f"no flash_attention for device {q.device}")
         if not grad:
@@ -443,6 +595,7 @@ class _FlashAttention(torch.autograd.Function):
         o, lse = out
         ctx.save_for_backward(q, k, v, o, lse, rope_cos, rope_sin)
         ctx.sm_scale, ctx.single = sm_scale, single
+        ctx.rope_rotate = rope_rotate
         return o
 
     @staticmethod
@@ -454,30 +607,36 @@ class _FlashAttention(torch.autograd.Function):
             kernels = _BACKWARD_OF["flash_fwd_single_tile" if ctx.single
                                    else "flash_fwd"]
             dq, dk, dv = _launch_backward(kernels, q, k, v, do, lse, di,
-                                          ctx.sm_scale, rope_cos, rope_sin)
+                                          ctx.sm_scale, rope_cos, rope_sin,
+                                          ctx.rope_rotate)
         else:
             plain = (attention_backward_single_tile_reference if ctx.single
                      else attention_backward_reference)
             dq, dk, dv = plain(q, k, v, do, lse, di, ctx.sm_scale, rope_cos,
-                               rope_sin)
-        return dq, dk, dv, None, None, None, None, None
+                               rope_sin, ctx.rope_rotate)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, sm_scale: float | None = None,
                     fixed_max: float | None = None,
                     rope_cos=None, rope_sin=None, block_q: int | None = None,
                     block_k_major: int | None = None,
-                    block_k: int | None = None):
+                    block_k: int | None = None, rope_rotate="half"):
     """Multi-head attention, shapes ``(B, H, S, D)`` → ``(B, H, Sq, D)``,
     differentiable in q, k and v.
 
     ``sm_scale`` defaults to 1/√D. ``fixed_max`` is a static bound on the
     logits (qk-normed models): the softmax then runs without a running
-    max. ``rope_cos``/``rope_sin`` ((S, D) float32, see
-    :func:`rope_2d_tables`) apply the rotate-half rope to q and k inside
-    the kernel (self-attention, Sq == Sk); they are constants, with no
-    gradient. ``block_q``/``block_k_major``/``block_k`` are skix's tile
-    keywords; they choose K2 (and K5 in the backward) where skix would
+    max. ``rope_cos``/``rope_sin`` ((S, D) float32) apply the rope
+    ``x∘cos + rot(x)∘sin`` to q and k inside the kernel (self-attention,
+    Sq == Sk); they are constants, with no gradient. ``rope_rotate`` is
+    rot's style, as in skix: ``"half"`` (:func:`rope_2d_tables`),
+    ``"interleaved"`` (:func:`interleaved_rope_tables`) or ``("segments",
+    axes)`` (:func:`rope_3d_tables`). The backward un-rotates dq and dk as
+    ``x∘cos − rot(x)∘sin``, the exact gradient for a sin table that is
+    pair-symmetric under the style, as those builders make it.
+    ``block_q``/``block_k_major``/``block_k`` are skix's tile keywords;
+    they choose K2 (and K5 in the backward) where skix would
     (:func:`is_single_tile`) and nothing else.
 
     A CUDA tensor goes through the Hopper kernels (head dim 32, 64 or 128,
@@ -488,7 +647,7 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
     single = is_single_tile(q.shape[2], k.shape[2], block_q, block_k_major,
                             block_k)
     return _FlashAttention.apply(q, k, v, rope_cos, rope_sin, sm_scale,
-                                 fixed_max, single)
+                                 fixed_max, single, _style_key(rope_rotate))
 
 
 def flash_attention_with_lse(q, k, v, sm_scale: float | None = None):

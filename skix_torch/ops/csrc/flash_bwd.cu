@@ -34,50 +34,53 @@ namespace {
 
 using namespace skix;
 
-template <typename T, int D>
+template <typename T, int D, bool TB>
 __global__ void __launch_bounds__(BWD_NT) flash_bwd_dkv_kernel(const BwdParams p) {
   extern __shared__ __align__(16) float smem[];
-  dkv_tile<T, D>(p, smem, blockIdx.x, blockIdx.y, blockIdx.z);
+  dkv_tile<T, D, TB>(p, smem, blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool TB>
 __global__ void __launch_bounds__(BWD_NT) flash_bwd_dq_kernel(const BwdParams p) {
   extern __shared__ __align__(16) float smem[];
-  dq_tile<T, D>(p, smem, blockIdx.x, blockIdx.y, blockIdx.z);
+  dq_tile<T, D, TB>(p, smem, blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool TB>
 cudaError_t launch(const BwdParams& p, int B, bool dkv, cudaStream_t stream) {
   if (dkv) {
     const size_t smem = sizeof(float) * dkv_smem_floats<D>();
-    cudaError_t err = set_smem(flash_bwd_dkv_kernel<T, D>, smem);
+    cudaError_t err = set_smem(flash_bwd_dkv_kernel<T, D, TB>, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.Sk + BWD_BK - 1) / BWD_BK, p.H, B);
-    flash_bwd_dkv_kernel<T, D><<<grid, BWD_NT, smem, stream>>>(p);
+    flash_bwd_dkv_kernel<T, D, TB><<<grid, BWD_NT, smem, stream>>>(p);
   } else {
     const size_t smem = sizeof(float) * dq_smem_floats<D>();
-    cudaError_t err = set_smem(flash_bwd_dq_kernel<T, D>, smem);
+    cudaError_t err = set_smem(flash_bwd_dq_kernel<T, D, TB>, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.Sq + 63) / 64, p.H, B);
-    flash_bwd_dq_kernel<T, D><<<grid, BWD_NT, smem, stream>>>(p);
+    flash_bwd_dq_kernel<T, D, TB><<<grid, BWD_NT, smem, stream>>>(p);
   }
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(const BwdParams& p, int B, int D, bool dkv, cudaStream_t s) {
-  if (D == 32) return launch<T, 32>(p, B, dkv, s);
-  if (D == 64) return launch<T, 64>(p, B, dkv, s);
-  if (D == 128) return launch<T, 128>(p, B, dkv, s);
+  if (D == 32) return p.rot != nullptr ? launch<T, 32, true>(p, B, dkv, s)
+                          : launch<T, 32, false>(p, B, dkv, s);
+  if (D == 64) return p.rot != nullptr ? launch<T, 64, true>(p, B, dkv, s)
+                          : launch<T, 64, false>(p, B, dkv, s);
+  if (D == 128) return p.rot != nullptr ? launch<T, 128, true>(p, B, dkv, s)
+                          : launch<T, 128, false>(p, B, dkv, s);
   return static_cast<cudaError_t>(1000);
 }
 
 int entry(bool dkv, const void* q, const void* k, const void* v, const void* dout,
           const float* lse, const float* di, void* dq, void* dk, void* dv, const float* cos,
-          const float* sin, int B, int H, int Sq, int Sk, int D, int dtype,
+          const float* sin, const int* rot, int B, int H, int Sq, int Sk, int D, int dtype,
           const long long* strides, float sm_scale, float scale_log2, void* stream) {
   BwdParams p;
-  if (!bwd_params(p, q, k, v, dout, lse, di, dq, dk, dv, cos, sin, B, H, Sq, Sk, strides,
+  if (!bwd_params(p, q, k, v, dout, lse, di, dq, dk, dv, cos, sin, rot, B, H, Sq, Sk, strides,
                   sm_scale, scale_log2))
     return 1000;
   if (dkv ? (dk == nullptr || dv == nullptr) : dq == nullptr) return 1000;
@@ -95,24 +98,26 @@ extern "C" {
 // strides (b, h, s) in `strides` (21 values: q, k, v, dO, dq, dk, dv) and
 // unit stride along D. lse, di: contiguous (B, H, Sq) f32, lse in base 2 as
 // the forward wrote it. dtype 0 = float32, 1 = bfloat16; D 32, 64 or 128;
-// rope tables (S, D) f32 need Sq == Sk. K3 writes dk and dv (dq unused), K4
-// writes dq (dk, dv unused). Returns a cudaError_t (0 on success); 1000 for
+// rope: all null, or (S, D) f32 cos/sin tables (Sq == Sk) with rot null for
+// rotate-half or the (D,) int32 rotation codes of another style
+// (flash_common.cuh rot_at). K3 writes dk
+// and dv (dq unused), K4 writes dq (dk, dv unused). Returns a cudaError_t (0 on success); 1000 for
 // arguments the kernels do not take.
 int skix_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* di, void* dq, void* dk, void* dv,
-                       const float* cos, const float* sin, int B, int H, int Sq, int Sk, int D,
-                       int dtype, const long long* strides, float sm_scale, float scale_log2,
-                       void* stream) {
-  return entry(true, q, k, v, dout, lse, di, dq, dk, dv, cos, sin, B, H, Sq, Sk, D, dtype,
+                       const float* cos, const float* sin, const int* rot, int B, int H,
+                       int Sq, int Sk, int D, int dtype, const long long* strides,
+                       float sm_scale, float scale_log2, void* stream) {
+  return entry(true, q, k, v, dout, lse, di, dq, dk, dv, cos, sin, rot, B, H, Sq, Sk, D, dtype,
                strides, sm_scale, scale_log2, stream);
 }
 
 int skix_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* di, void* dq, void* dk, void* dv,
-                      const float* cos, const float* sin, int B, int H, int Sq, int Sk, int D,
-                      int dtype, const long long* strides, float sm_scale, float scale_log2,
-                      void* stream) {
-  return entry(false, q, k, v, dout, lse, di, dq, dk, dv, cos, sin, B, H, Sq, Sk, D, dtype,
+                      const float* cos, const float* sin, const int* rot, int B, int H,
+                      int Sq, int Sk, int D, int dtype, const long long* strides,
+                      float sm_scale, float scale_log2, void* stream) {
+  return entry(false, q, k, v, dout, lse, di, dq, dk, dv, cos, sin, rot, B, H, Sq, Sk, D, dtype,
                strides, sm_scale, scale_log2, stream);
 }
 

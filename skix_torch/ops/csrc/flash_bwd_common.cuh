@@ -10,9 +10,12 @@
 //   dV = round_T(p)^T.dO;  dP = dO.V^T;  dS = round_T(p * (dP - di));
 //   dK = sm_scale * dS^T.q_r;  dQ = sm_scale * dS.k_r;
 // accumulators in f32; with rope, dK and dQ are un-rotated at the store as
-// x*cos - rot(x)*sin, rot the rotate-half within each D/2 half. That equals
-// the true gradient of the rope only for a pair-symmetric sin table
-// (sin[s, j] == sin[s, partner(j)]), which rope_2d_tables builds.
+// x*cos - rot(x)*sin, rot the style's signed permutation (rot_at: by index
+// for rotate-half, else one code per column), whose transpose is its
+// negative for every style. That
+// equals the true gradient of the rope only for a pair-symmetric sin table
+// (sin[s, j] == sin[s, partner(j)]), which every table builder of the port
+// makes.
 //
 // Roles. dkv_tile: one CTA per (64-key tile, head, batch row) holds its
 // roped k and its v tile (f32, transposed) and the f32 dK, dV accumulators
@@ -43,6 +46,7 @@ struct BwdParams {
   void* dv;
   const float* cos;   // (S, D) f32 or null
   const float* sin;
+  const int* rot;     // (D,) rotation codes of the rope's style; null: rotate-half
   int H, Sq, Sk;
   // (b, h, s) element strides of q, k, v, dO, dQ, dK, dV, in that order
   long long st[21];
@@ -52,17 +56,17 @@ struct BwdParams {
 
 // Rows [row0, row0 + R) of one (S, D) head slice into shared memory as f32,
 // zero past `rows`: transposed (dst[d * LD + r]) or row-major (dst[r * LD +
-// d]). With rope, x*cos + rot(x)*sin in f32 rounded to T; then, with
+// d]). With rope, x*cos + rot(x)*sin in f32 (rot_at) rounded to T; then, with
 // `scale_on`, times `scale` rounded to T again (the backward kernels cast
 // the roped tile and the scaled tile separately). The _rn intrinsics keep
 // nvcc from contracting the products into FMAs.
-template <typename T, int D, int R, int LD, bool TRANS>
+template <typename T, int D, int R, int LD, bool TRANS, bool TB>
 __device__ __forceinline__ void bwd_load(float* __restrict__ dst, const T* __restrict__ src,
                                          long long stride_s, int row0, int rows,
                                          const float* __restrict__ cos,
-                                         const float* __restrict__ sin, bool scale_on,
+                                         const float* __restrict__ sin,
+                                         const int* __restrict__ rot, bool scale_on,
                                          float scale) {
-  constexpr int Q4 = D / 4;
   for (int idx = threadIdx.x; idx < R * D; idx += BWD_NT) {
     const int r = idx / D, d = idx % D;
     float x = 0.f;
@@ -70,11 +74,8 @@ __device__ __forceinline__ void bwd_load(float* __restrict__ dst, const T* __res
       const T* row = src + (long long)(row0 + r) * stride_s;
       x = to_f32(row[d]);
       if (cos != nullptr) {
-        const bool lo = (d % (D / 2)) < Q4;
-        const float partner = to_f32(row[lo ? d + Q4 : d - Q4]);
-        const float rot = lo ? -partner : partner;
         const long long t = (long long)(row0 + r) * D + d;
-        x = round_to<T>(__fadd_rn(__fmul_rn(x, cos[t]), __fmul_rn(rot, sin[t])));
+        x = round_to<T>(__fadd_rn(__fmul_rn(x, cos[t]), __fmul_rn(rot_at<D, TB>(row, rot, d), sin[t])));
       }
       if (scale_on) x = round_to<T>(__fmul_rn(x, scale));
     }
@@ -86,14 +87,16 @@ __device__ __forceinline__ void bwd_load(float* __restrict__ dst, const T* __res
 // (rg, cg) holding rows rg*4..+3 and columns out_col<D>(cg, j)) times
 // `mul` to `dst` as T, rows past `rows` skipped. With rope, each value is
 // un-rotated as x*cos - rot(x)*sin, which needs the partner column held by
-// another thread: the scaled tile goes through `stage` ([64][D + 4] f32).
-template <typename T, int D>
+// another thread (the next column, for interleaved pairs): the scaled tile
+// goes through `stage` ([64][D + 4] f32) and rot reads it there.
+template <typename T, int D, bool TB>
 __device__ __forceinline__ void bwd_store(T* __restrict__ dst, long long stride_s,
                                           const float (&acc)[4][D / 16], float mul, int row0,
                                           int rows, const float* __restrict__ cos,
                                           const float* __restrict__ sin,
+                                          const int* __restrict__ rot,
                                           float* __restrict__ stage) {
-  constexpr int CPT = D / 16, LV = D + 4, Q4 = D / 4;
+  constexpr int CPT = D / 16, LV = D + 4;
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
   if (cos == nullptr) {
 #pragma unroll
@@ -116,13 +119,10 @@ __device__ __forceinline__ void bwd_store(T* __restrict__ dst, long long stride_
   for (int idx = threadIdx.x; idx < BWD_BK * D; idx += BWD_NT) {
     const int r = idx / D, d = idx % D;
     if (r >= rows) continue;
-    const bool lo = (d % (D / 2)) < Q4;
-    const float x = stage[r * LV + d];
-    const float partner = stage[r * LV + (lo ? d + Q4 : d - Q4)];
-    const float rot = lo ? -partner : partner;
+    const float* srow = stage + r * LV;
     const long long t = (long long)(row0 + r) * D + d;
-    dst[(long long)(row0 + r) * stride_s + d] =
-        from_f32<T>(__fsub_rn(__fmul_rn(x, cos[t]), __fmul_rn(rot, sin[t])));
+    dst[(long long)(row0 + r) * stride_s + d] = from_f32<T>(
+        __fsub_rn(__fmul_rn(srow[d], cos[t]), __fmul_rn(rot_at<D, TB>(srow, rot, d), sin[t])));
   }
 }
 
@@ -147,7 +147,7 @@ template <int D> __host__ __device__ constexpr size_t dq_smem_floats() {
 }
 
 // dK and dV of keys [tile*64, tile*64 + 64) of head (b, h), over all q rows.
-template <typename T, int D>
+template <typename T, int D, bool TB>
 __device__ void dkv_tile(const BwdParams& p, float* smem, int tile, int h, int b) {
   constexpr int BQ = dkv_bq<D>(), RQ = BQ / 16, CPT = D / 16;
   constexpr int LT = BWD_BK + 4, LQ = BQ + 4, LV = D + 4, LP = BWD_BK + 4;
@@ -171,8 +171,9 @@ __device__ void dkv_tile(const BwdParams& p, float* smem, int tile, int h, int b
   const long long row_stat = ((long long)b * p.H + h) * p.Sq;
   const int k0 = tile * BWD_BK, kr = min(BWD_BK, p.Sk - k0);
 
-  bwd_load<T, D, BWD_BK, LT, true>(Kt, kh, st[5], k0, kr, p.cos, p.sin, false, 1.f);
-  bwd_load<T, D, BWD_BK, LT, true>(Vt, vh, st[8], k0, kr, nullptr, nullptr, false, 1.f);
+  bwd_load<T, D, BWD_BK, LT, true, TB>(Kt, kh, st[5], k0, kr, p.cos, p.sin, p.rot, false, 1.f);
+  bwd_load<T, D, BWD_BK, LT, true, TB>(Vt, vh, st[8], k0, kr, nullptr, nullptr, nullptr, false,
+                                   1.f);
 
   float adk[4][CPT], adv[4][CPT];
 #pragma unroll
@@ -183,9 +184,11 @@ __device__ void dkv_tile(const BwdParams& p, float* smem, int tile, int h, int b
   for (int q0 = 0; q0 < p.Sq; q0 += BQ) {
     const int qr = min(BQ, p.Sq - q0);
     __syncthreads();  // the previous tile's readers are done
-    bwd_load<T, D, BQ, LV, false>(Qr, qh, st[2], q0, qr, p.cos, p.sin, false, 1.f);
-    bwd_load<T, D, BQ, LV, false>(dOr, oh, st[11], q0, qr, nullptr, nullptr, false, 1.f);
-    bwd_load<T, D, BQ, LQ, true>(dOt, oh, st[11], q0, qr, nullptr, nullptr, false, 1.f);
+    bwd_load<T, D, BQ, LV, false, TB>(Qr, qh, st[2], q0, qr, p.cos, p.sin, p.rot, false, 1.f);
+    bwd_load<T, D, BQ, LV, false, TB>(dOr, oh, st[11], q0, qr, nullptr, nullptr, nullptr, false,
+                                  1.f);
+    bwd_load<T, D, BQ, LQ, true, TB>(dOt, oh, st[11], q0, qr, nullptr, nullptr, nullptr, false,
+                                 1.f);
     for (int r = tid; r < BQ; r += BWD_NT) {
       Ls[r] = r < qr ? p.lse[row_stat + q0 + r] : 0.f;
       Ds[r] = r < qr ? p.di[row_stat + q0 + r] : 0.f;
@@ -254,14 +257,14 @@ __device__ void dkv_tile(const BwdParams& p, float* smem, int tile, int h, int b
   }
 
   // dV as it is, dK times sm_scale, un-rotated with rope (stage: Kt, Vt)
-  bwd_store<T, D>(static_cast<T*>(p.dv) + b * st[18] + h * st[19], st[20], adv, 1.f, k0, kr,
-                  nullptr, nullptr, nullptr);
-  bwd_store<T, D>(static_cast<T*>(p.dk) + b * st[15] + h * st[16], st[17], adk, p.sm_scale,
-                  k0, kr, p.cos, p.sin, Kt);
+  bwd_store<T, D, TB>(static_cast<T*>(p.dv) + b * st[18] + h * st[19], st[20], adv, 1.f, k0, kr,
+                  nullptr, nullptr, nullptr, nullptr);
+  bwd_store<T, D, TB>(static_cast<T*>(p.dk) + b * st[15] + h * st[16], st[17], adk, p.sm_scale,
+                  k0, kr, p.cos, p.sin, p.rot, Kt);
 }
 
 // dQ of q rows [tile*64, tile*64 + 64) of head (b, h), over all keys.
-template <typename T, int D>
+template <typename T, int D, bool TB>
 __device__ void dq_tile(const BwdParams& p, float* smem, int tile, int h, int b) {
   constexpr int BQ = 64, CPT = D / 16;
   constexpr int LT = BWD_BK + 4, LV = D + 4;
@@ -284,8 +287,9 @@ __device__ void dq_tile(const BwdParams& p, float* smem, int tile, int h, int b)
   const int q0 = tile * BQ, qr = min(BQ, p.Sq - q0);
 
   // q roped and rounded, then scaled and rounded again (two casts)
-  bwd_load<T, D, BQ, LT, true>(Qst, qh, st[2], q0, qr, p.cos, p.sin, true, p.scale_log2);
-  bwd_load<T, D, BQ, LT, true>(dOt, oh, st[11], q0, qr, nullptr, nullptr, false, 1.f);
+  bwd_load<T, D, BQ, LT, true, TB>(Qst, qh, st[2], q0, qr, p.cos, p.sin, p.rot, true,
+                               p.scale_log2);
+  bwd_load<T, D, BQ, LT, true, TB>(dOt, oh, st[11], q0, qr, nullptr, nullptr, nullptr, false, 1.f);
   for (int r = tid; r < BQ; r += BWD_NT) {
     Ls[r] = r < qr ? p.lse[row_stat + q0 + r] : 0.f;
     Ds[r] = r < qr ? p.di[row_stat + q0 + r] : 0.f;
@@ -300,9 +304,10 @@ __device__ void dq_tile(const BwdParams& p, float* smem, int tile, int h, int b)
   for (int k0 = 0; k0 < p.Sk; k0 += BWD_BK) {
     const int kr = min(BWD_BK, p.Sk - k0);
     __syncthreads();  // the previous tile's readers are done
-    bwd_load<T, D, BWD_BK, LT, true>(Kt, kh, st[5], k0, kr, p.cos, p.sin, false, 1.f);
-    bwd_load<T, D, BWD_BK, LV, false>(Kr, kh, st[5], k0, kr, p.cos, p.sin, false, 1.f);
-    bwd_load<T, D, BWD_BK, LT, true>(Vt, vh, st[8], k0, kr, nullptr, nullptr, false, 1.f);
+    bwd_load<T, D, BWD_BK, LT, true, TB>(Kt, kh, st[5], k0, kr, p.cos, p.sin, p.rot, false, 1.f);
+    bwd_load<T, D, BWD_BK, LV, false, TB>(Kr, kh, st[5], k0, kr, p.cos, p.sin, p.rot, false, 1.f);
+    bwd_load<T, D, BWD_BK, LT, true, TB>(Vt, vh, st[8], k0, kr, nullptr, nullptr, nullptr, false,
+                                     1.f);
     __syncthreads();
 
     // scores and dP: thread owns q rows rg*4..+3, keys cg*4..+3
@@ -355,8 +360,8 @@ __device__ void dq_tile(const BwdParams& p, float* smem, int tile, int h, int b)
   }
 
   // dQ times sm_scale, un-rotated with rope (stage: Kt, Vt)
-  bwd_store<T, D>(static_cast<T*>(p.dq) + b * st[12] + h * st[13], st[14], acc, p.sm_scale,
-                  q0, qr, p.cos, p.sin, Kt);
+  bwd_store<T, D, TB>(static_cast<T*>(p.dq) + b * st[12] + h * st[13], st[14], acc, p.sm_scale,
+                  q0, qr, p.cos, p.sin, p.rot, Kt);
 }
 
 // Launch helpers: the dynamic shared memory of a kernel, set once per
@@ -370,11 +375,11 @@ __host__ cudaError_t set_smem(K kernel, size_t bytes) {
 // arguments no backward kernel takes.
 __host__ inline bool bwd_params(BwdParams& p, const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse, const float* di, void* dq,
-                                void* dk, void* dv, const float* cos, const float* sin, int B,
-                                int H, int Sq, int Sk, const long long* strides, float sm_scale,
-                                float scale_log2) {
+                                void* dk, void* dv, const float* cos, const float* sin,
+                                const int* rot, int B, int H, int Sq, int Sk,
+                                const long long* strides, float sm_scale, float scale_log2) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B > 65535 || H > 65535) return false;
-  if ((cos == nullptr) != (sin == nullptr)) return false;
+  if ((cos == nullptr) != (sin == nullptr) || (cos == nullptr && rot != nullptr)) return false;
   if (cos != nullptr && Sq != Sk) return false;
   if (lse == nullptr || di == nullptr || strides == nullptr) return false;
   p.q = q;
@@ -388,6 +393,7 @@ __host__ inline bool bwd_params(BwdParams& p, const void* q, const void* k, cons
   p.dv = dv;
   p.cos = cos;
   p.sin = sin;
+  p.rot = rot;
   p.H = H;
   p.Sq = Sq;
   p.Sk = Sk;

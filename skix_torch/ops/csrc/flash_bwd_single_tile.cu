@@ -31,33 +31,36 @@ namespace {
 
 using namespace skix;
 
-template <typename T, int D>
+template <typename T, int D, bool TB>
 __global__ void __launch_bounds__(BWD_NT) bwd_single_tile_kernel(const BwdParams p, int nk) {
   extern __shared__ __align__(16) float smem[];
   if ((int)blockIdx.x < nk) {
-    dkv_tile<T, D>(p, smem, blockIdx.x, blockIdx.y, blockIdx.z);
+    dkv_tile<T, D, TB>(p, smem, blockIdx.x, blockIdx.y, blockIdx.z);
   } else {
-    dq_tile<T, D>(p, smem, blockIdx.x - nk, blockIdx.y, blockIdx.z);
+    dq_tile<T, D, TB>(p, smem, blockIdx.x - nk, blockIdx.y, blockIdx.z);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool TB>
 cudaError_t launch(const BwdParams& p, int B, cudaStream_t stream) {
   const size_t a = dkv_smem_floats<D>(), b = dq_smem_floats<D>();
   const size_t smem = sizeof(float) * (a > b ? a : b);
-  cudaError_t err = set_smem(bwd_single_tile_kernel<T, D>, smem);
+  cudaError_t err = set_smem(bwd_single_tile_kernel<T, D, TB>, smem);
   if (err != cudaSuccess) return err;
   const int nk = (p.Sk + BWD_BK - 1) / BWD_BK, nq = (p.Sq + 63) / 64;
   const dim3 grid(nk + nq, p.H, B);
-  bwd_single_tile_kernel<T, D><<<grid, BWD_NT, smem, stream>>>(p, nk);
+  bwd_single_tile_kernel<T, D, TB><<<grid, BWD_NT, smem, stream>>>(p, nk);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(const BwdParams& p, int B, int D, cudaStream_t s) {
-  if (D == 32) return launch<T, 32>(p, B, s);
-  if (D == 64) return launch<T, 64>(p, B, s);
-  if (D == 128) return launch<T, 128>(p, B, s);
+  if (D == 32) return p.rot != nullptr ? launch<T, 32, true>(p, B, s)
+                          : launch<T, 32, false>(p, B, s);
+  if (D == 64) return p.rot != nullptr ? launch<T, 64, true>(p, B, s)
+                          : launch<T, 64, false>(p, B, s);
+  if (D == 128) return p.rot != nullptr ? launch<T, 128, true>(p, B, s)
+                          : launch<T, 128, false>(p, B, s);
   return static_cast<cudaError_t>(1000);
 }
 
@@ -68,11 +71,11 @@ extern "C" {
 // Arguments as skix_flash_bwd_dkv (flash_bwd.cu); writes dq, dk and dv.
 int skix_flash_bwd_single_tile(const void* q, const void* k, const void* v, const void* dout,
                                const float* lse, const float* di, void* dq, void* dk, void* dv,
-                               const float* cos, const float* sin, int B, int H, int Sq, int Sk,
-                               int D, int dtype, const long long* strides, float sm_scale,
-                               float scale_log2, void* stream) {
+                               const float* cos, const float* sin, const int* rot, int B, int H,
+                               int Sq, int Sk, int D, int dtype, const long long* strides,
+                               float sm_scale, float scale_log2, void* stream) {
   BwdParams p;
-  if (!bwd_params(p, q, k, v, dout, lse, di, dq, dk, dv, cos, sin, B, H, Sq, Sk, strides,
+  if (!bwd_params(p, q, k, v, dout, lse, di, dq, dk, dv, cos, sin, rot, B, H, Sq, Sk, strides,
                   sm_scale, scale_log2))
     return 1000;
   if (dq == nullptr || dk == nullptr || dv == nullptr) return 1000;

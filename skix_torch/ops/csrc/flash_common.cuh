@@ -1,7 +1,8 @@
 // Pieces shared by the attention kernels of skix_torch (flash_fwd.cu,
 // flash_fwd_single_tile.cu): dtype conversions, the rounding helpers that
-// repeat the TPU kernels' casts, the tile loader with the fused rotate-half
-// rope, half-warp reductions and the output-column map of the P.V loops.
+// repeat the TPU kernels' casts, the rope's rotation by code table, the tile
+// loader with the fused rope, half-warp reductions and the output-column map
+// of the P.V loops.
 
 #pragma once
 
@@ -26,21 +27,42 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
+// rot(x)[d] of one row: the rope style's signed permutation. TB false:
+// rotate-half within each D/2 half by index (y[j] = -x[j + D/4],
+// y[j + D/4] = x[j]), the style of every default path, compiled without a
+// table read; TB true: one int32 code per column of `rot` (interleaved
+// pairs, rotate-half per segment), code = sign * (partner + 1), code 0
+// marking a column the style leaves untouched (a segments tail), whose rot
+// is 0. Exact: a copy and a sign.
+template <int D, bool TB, typename T>
+__device__ __forceinline__ float rot_at(const T* __restrict__ row, const int* __restrict__ rot,
+                                        int d) {
+  if constexpr (!TB) {
+    constexpr int Q4 = D / 4;
+    const bool lo = (d % (D / 2)) < Q4;
+    const float partner = to_f32(row[lo ? d + Q4 : d - Q4]);
+    return lo ? -partner : partner;
+  } else {
+    const int c = rot[d];
+    if (c == 0) return 0.f;
+    return c > 0 ? to_f32(row[c - 1]) : -to_f32(row[-c - 1]);
+  }
+}
+
 // Load rows [row0, row0 + R) of one (S, D) head slice into dst[d * LD + r],
 // transposed and as f32, zero past `rows`, with all NT threads of the block.
-// With rope: x*cos + rot(x)*sin in f32, rot the rotate-half within each D/2
-// half (y[j] = -x[j + D/4], y[j + D/4] = x[j]). With `mul_on`: times mul.
+// With rope: x*cos + rot(x)*sin in f32 (rot_at<D, TB>). With `mul_on`: times mul.
 // Either way the result is rounded to T, as the TPU kernels cast roped or
 // scaled tiles back to the input type. The _rn intrinsics keep nvcc from
 // fusing the products into FMAs, so the f32 values equal the plain
 // version's.
-template <typename T, int D, int R, int LD, int NT>
+template <typename T, int D, int R, int LD, int NT, bool TB>
 __device__ __forceinline__ void load_rows_t(float* __restrict__ dst, const T* __restrict__ src,
                                             long long stride_s, int row0, int rows,
                                             const float* __restrict__ cos,
-                                            const float* __restrict__ sin, bool mul_on,
+                                            const float* __restrict__ sin,
+                                            const int* __restrict__ rot, bool mul_on,
                                             float mul) {
-  constexpr int Q4 = D / 4;
   for (int idx = threadIdx.x; idx < R * D; idx += NT) {
     const int r = idx / D, d = idx % D;
     float x = 0.f;
@@ -49,11 +71,8 @@ __device__ __forceinline__ void load_rows_t(float* __restrict__ dst, const T* __
       x = to_f32(row[d]);
       const bool rounded = cos != nullptr || mul_on;
       if (cos != nullptr) {
-        const bool lo = (d % (D / 2)) < Q4;
-        const float partner = to_f32(row[lo ? d + Q4 : d - Q4]);
-        const float rot = lo ? -partner : partner;
         const long long t = (long long)(row0 + r) * D + d;
-        x = __fadd_rn(__fmul_rn(x, cos[t]), __fmul_rn(rot, sin[t]));
+        x = __fadd_rn(__fmul_rn(x, cos[t]), __fmul_rn(rot_at<D, TB>(row, rot, d), sin[t]));
       }
       if (mul_on) x = __fmul_rn(x, mul);
       if (rounded) x = round_to<T>(x);

@@ -3,8 +3,11 @@
 // Replaces the TPU kernel K1, `_fwd_kernel` in skix/ops/attention.py:184:
 // softmax(scale * Q K^T) V with an online softmax in base 2, f32 statistics
 // (m, l) and f32 accumulator, a ragged-edge mask, an optional fixed logit
-// bound (no running max), an optional rotate-half rope fused from (S, D)
-// cos/sin tables, and an optional base-2 log-partition output
+// bound (no running max), an optional rope fused from (S, D) cos/sin tables
+// in any of skix's three styles (rotate-half by index; interleaved pairs and
+// rotate-half per segment by a (D,) code table; flash_common.cuh rot_at),
+// and an optional
+// base-2 log-partition output
 // lse = m + log2(l) (0 where l == 0), as the TPU kernel's residual store
 // (attention.py:297-305) computes it, one f32 per row.
 //
@@ -47,6 +50,7 @@ struct Params {
   float* lse;        // (B, H, Sq) f32, contiguous, or null
   const float* cos;  // (Sq, D) or null
   const float* sin;
+  const int* rot;    // (D,) rotation codes of the rope's style; null: rotate-half
   int H, Sq, Sk;
   long long sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos;
   float scale_log2;  // sm_scale * log2(e), rounded to f32
@@ -54,7 +58,7 @@ struct Params {
   float max_log2;    // fixed_max * log2(e), rounded to f32
 };
 
-template <typename T, int D>
+template <typename T, int D, bool TB>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   constexpr int LV = D + 4;     // row length (floats) of the v tile
   constexpr int CPT = D / 16;   // output columns per thread
@@ -72,7 +76,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   const T* vh = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
   T* oh = static_cast<T*>(p.o) + b * p.sob + h * p.soh;
 
-  load_rows_t<T, D, BQ, LT, NT>(Qt, qh, p.sqs, q0, min(BQ, p.Sq - q0), p.cos, p.sin, true,
+  load_rows_t<T, D, BQ, LT, NT, TB>(Qt, qh, p.sqs, q0, min(BQ, p.Sq - q0), p.cos, p.sin, p.rot, true,
                                 p.scale_log2);
 
   float m[4], l[4], acc[4][CPT];
@@ -87,7 +91,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   for (int k0 = 0; k0 < p.Sk; k0 += BK) {
     const int kr = min(BK, p.Sk - k0);
     __syncthreads();  // the previous tile's readers are done
-    load_rows_t<T, D, BK, LT, NT>(Kt, kh, p.sks, k0, kr, p.cos, p.sin, false, 1.f);
+    load_rows_t<T, D, BK, LT, NT, TB>(Kt, kh, p.sks, k0, kr, p.cos, p.sin, p.rot, false, 1.f);
     for (int idx = tid; idx < BK * D; idx += NT) {
       const int r = idx / D, d = idx % D;
       Vs[r * LV + d] = r < kr ? to_f32(vh[(long long)(k0 + r) * p.svs + d]) : 0.f;
@@ -172,22 +176,25 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool TB>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * (2 * D * LT + BK * (D + 4) + BK * LT);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D, TB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+  flash_fwd_kernel<T, D, TB><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(const Params& p, int B, int D, cudaStream_t s) {
-  if (D == 32) return launch<T, 32>(p, B, s);
-  if (D == 64) return launch<T, 64>(p, B, s);
-  if (D == 128) return launch<T, 128>(p, B, s);
+  if (D == 32) return p.rot != nullptr ? launch<T, 32, true>(p, B, s)
+                          : launch<T, 32, false>(p, B, s);
+  if (D == 64) return p.rot != nullptr ? launch<T, 64, true>(p, B, s)
+                          : launch<T, 64, false>(p, B, s);
+  if (D == 128) return p.rot != nullptr ? launch<T, 128, true>(p, B, s)
+                          : launch<T, 128, false>(p, B, s);
   return static_cast<cudaError_t>(1000);
 }
 
@@ -196,18 +203,22 @@ cudaError_t launch_d(const Params& p, int B, int D, cudaStream_t s) {
 extern "C" {
 
 // q, k, v, o: (B, H, S, D) with element strides (b, h, s) and unit stride
-// along D; lse: null or a contiguous (B, H, Sq) f32 output; dtype 0 =
+// along D; lse: null or a contiguous (B, H, Sq) f32 output; cos, sin, rot:
+// all null, or the rope's (Sq, D) f32 tables with rot null for rotate-half
+// or the (D,) int32 rotation codes sign * (partner + 1) of another style;
+// dtype 0 =
 // float32, 1 = bfloat16; D 32, 64 or 128. Returns a cudaError_t (0 on
 // success); 1000 for arguments the kernel does not take.
 int skix_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                   const float* cos, const float* sin, int B, int H, int Sq, int Sk, int D,
+                   const float* cos, const float* sin, const int* rot, int B, int H,
+                   int Sq, int Sk, int D,
                    int dtype, long long sqb, long long sqh, long long sqs, long long skb,
                    long long skh, long long sks, long long svb, long long svh, long long svs,
                    long long sob, long long soh, long long sos, float scale_log2, int fixed,
                    float max_log2, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B > 65535 || H > 65535) return 1000;
-  if ((cos == nullptr) != (sin == nullptr)) return 1000;
-  const Params p{q,   k,   v,   o,   lse, cos, sin, H,   Sq,         Sk,    sqb,     sqh,
+  if ((cos == nullptr) != (sin == nullptr) || (cos == nullptr && rot != nullptr)) return 1000;
+  const Params p{q,   k,   v,   o,   lse, cos, sin, rot, H,   Sq,         Sk,    sqb,     sqh,
                  sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos, scale_log2, fixed, max_log2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_d<float>(p, B, D, s);

@@ -52,6 +52,7 @@ struct Params {
   float* lse;        // (B, H, Sq) f32, contiguous, or null
   const float* cos;  // (S, D) or null
   const float* sin;
+  const int* rot;    // (D,) rotation codes of the rope's style; null: rotate-half
   int H, Sq, Sk, LS;  // LS: row length (floats) of the score rows
   long long sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos;
   float scale_log2;  // sm_scale * log2(e), rounded to f32
@@ -63,7 +64,7 @@ template <int D> __host__ __device__ constexpr int chunk_floats() {
   return (D * LK > BK * (D + 4)) ? D * LK : BK * (D + 4);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool TB>
 __global__ void __launch_bounds__(NT) single_tile_kernel(const Params p) {
   constexpr int LV = D + 4;     // row length (floats) of the v chunk
   constexpr int CPT = D / 16;   // output columns per thread
@@ -83,13 +84,13 @@ __global__ void __launch_bounds__(NT) single_tile_kernel(const Params p) {
   const T* vh = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
   T* oh = static_cast<T*>(p.o) + b * p.sob + h * p.soh;
 
-  load_rows_t<T, D, BQ, LQ, NT>(Qt, qh, p.sqs, q0, qrows, p.cos, p.sin, true, p.scale_log2);
+  load_rows_t<T, D, BQ, LQ, NT, TB>(Qt, qh, p.sqs, q0, qrows, p.cos, p.sin, p.rot, true, p.scale_log2);
 
   // phase 1: scores s = q.k (base-2 logits) for all Sk keys
   for (int k0 = 0; k0 < p.Sk; k0 += BK) {
     const int kr = min(BK, p.Sk - k0);
     __syncthreads();  // the previous chunk's readers are done
-    load_rows_t<T, D, BK, LK, NT>(KV, kh, p.sks, k0, kr, p.cos, p.sin, false, 1.f);
+    load_rows_t<T, D, BK, LK, NT, TB>(KV, kh, p.sks, k0, kr, p.cos, p.sin, p.rot, false, 1.f);
     __syncthreads();
     float s[2][4];
 #pragma unroll
@@ -176,22 +177,25 @@ template <int D> size_t smem_bytes(int LS) {
   return sizeof(float) * ((size_t)D * LQ + chunk_floats<D>() + (size_t)BQ * LS + BQ);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool TB>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(p.LS);
-  cudaError_t err = cudaFuncSetAttribute(single_tile_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(single_tile_kernel<T, D, TB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
-  single_tile_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+  single_tile_kernel<T, D, TB><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(const Params& p, int B, int D, cudaStream_t s) {
-  if (D == 32) return launch<T, 32>(p, B, s);
-  if (D == 64) return launch<T, 64>(p, B, s);
-  if (D == 128) return launch<T, 128>(p, B, s);
+  if (D == 32) return p.rot != nullptr ? launch<T, 32, true>(p, B, s)
+                          : launch<T, 32, false>(p, B, s);
+  if (D == 64) return p.rot != nullptr ? launch<T, 64, true>(p, B, s)
+                          : launch<T, 64, false>(p, B, s);
+  if (D == 128) return p.rot != nullptr ? launch<T, 128, true>(p, B, s)
+                          : launch<T, 128, false>(p, B, s);
   return static_cast<cudaError_t>(1000);
 }
 
@@ -212,20 +216,21 @@ long long skix_single_tile_smem_bytes(int Sk, int D) {
 // q: (B, H, Sq, D), k, v: (B, H, Sk, D), o like q, each with element
 // strides (b, h, s) and unit stride along D; lse: null or a contiguous
 // (B, H, Sq) f32 output; dtype 0 = float32, 1 = bfloat16; D 32, 64 or 128;
-// rope tables (S, D) need Sq == Sk. Returns a cudaError_t (0 on success);
+// rope: all null, or (S, D) f32 cos/sin tables (Sq == Sk) and rot (as
+// skix_flash_fwd). Returns a cudaError_t (0 on success);
 // 1000 for arguments the kernel does not take.
 int skix_flash_fwd_single_tile(const void* q, const void* k, const void* v, void* o, float* lse,
-                               const float* cos, const float* sin, int B, int H, int Sq, int Sk,
-                               int D, int dtype, long long sqb, long long sqh, long long sqs,
+                               const float* cos, const float* sin, const int* rot, int B, int H,
+                               int Sq, int Sk, int D, int dtype, long long sqb, long long sqh, long long sqs,
                                long long skb, long long skh, long long sks, long long svb,
                                long long svh, long long svs, long long sob, long long soh,
                                long long sos, float scale_log2, int fixed, float max_log2,
                                void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B > 65535 || H > 65535) return 1000;
-  if ((cos == nullptr) != (sin == nullptr)) return 1000;
+  if ((cos == nullptr) != (sin == nullptr) || (cos == nullptr && rot != nullptr)) return 1000;
   if (cos != nullptr && Sq != Sk) return 1000;
   const int LS = ((Sk + BK - 1) / BK) * BK + 4;
-  const Params p{q,   k,   v,   o,   lse, cos, sin, H,   Sq,  Sk,         LS,    sqb,     sqh,
+  const Params p{q,   k,   v,   o,   lse, cos, sin, rot, H,   Sq,  Sk,         LS,    sqb,     sqh,
                  sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos, scale_log2, fixed, max_log2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_d<float>(p, B, D, s);

@@ -17,9 +17,16 @@ per prompt, as skix writes them:
   ``front_timing.json`` (per-frame ``detector``/``tracker``/``outputs``
   spans).
 
-Without checkpoints the stage runs, loudly, with seeded random weights and
-hash prompt embeddings (skix's smoke mode). The compact model, the CLIP
-tower and ``overlay_video`` come with later slices and raise.
+With ``clip.checkpoint`` (a skix checkpoint npz of ``VETextEncoder``, read
+through the weight bridge) text prompts go through the CLIP tower
+(``clip.encoder``: the tower's keyword arguments, default the reference's
+width 1024, 16 heads, 24 layers, context 32); the tokenizer's context is
+the encoder's (skix's stage builds its tokenizer with CLIP's default 77,
+which its 32-token encoder cannot take). ``detector: {rope_style: sam3,
+pretrain_img_size: 336}`` is the detector configuration that converted
+SAM3 weights need. Without checkpoints the stage runs, loudly, with seeded
+random weights and hash prompt embeddings (skix's smoke mode). The compact
+model and ``overlay_video`` come with later slices and raise.
 :func:`process_frames` is :func:`process_video` without the decode, for
 callers that hold the frames already.
 """
@@ -88,16 +95,24 @@ def _build_sam3(cfg, device, timer=None):
         trk_assoc_iou_thresh=float(cfg.get("trk_assoc_iou_thresh", 0.5)),
         hotstart_delay=int(cfg.get("hotstart_delay", 0)),
         occlusion_suppress_iou=float(cfg.get("occlusion_suppress_iou", 0.0)))
-    clip_cfg = cfg.get("clip", {}) or {}
-    clip_ckpt = clip_cfg.get("checkpoint") if clip_cfg else None
+    clip = None
+    clip_cfg = dict(cfg.get("clip", {}) or {})
+    clip_ckpt = clip_cfg.get("checkpoint")
     if clip_ckpt and Path(clip_ckpt).exists():
-        raise NotImplementedError(
-            "the CLIP text tower comes with its checkpoint's slice of the "
-            "port; set clip.checkpoint: null for hash prompt embeddings")
-    log.warning("SMOKE MODE: no CLIP checkpoint — text prompts use the "
-                "deterministic hash embedding, not the CLIP tower")
-    return VideoPredictor(det, trk, masklet_cfg=mcfg, smoke_prompts=True,
-                          timer=timer)
+        from skix_torch.tracking.clip_text import VETextEncoder
+        from skix_torch.tracking.clip_tokenizer import ClipTokenizer
+
+        with torch.device("meta"):
+            enc = VETextEncoder(d_model=det.d_model,
+                                **dict(clip_cfg.get("encoder", {}) or {}))
+        enc = _load_into(enc.to_empty(device=device), clip_ckpt, "clip",
+                         seed=2)
+        clip = (ClipTokenizer(context_length=enc.context_length), enc)
+    else:
+        log.warning("SMOKE MODE: no CLIP checkpoint — text prompts use the "
+                    "deterministic hash embedding, not the CLIP tower")
+    return VideoPredictor(det, trk, masklet_cfg=mcfg, clip=clip,
+                          smoke_prompts=clip is None, timer=timer)
 
 
 def build_predictor(cfg, device=None, timer=None):

@@ -5,7 +5,13 @@ the VGGT multi-view reconstruction over the pt records, into
 ``<work_root>/vggt``; ``prepare_front_results``, the SAM3 front path over
 the front videos under ``paths.video_root``, into ``<work_root>/front``
 (skipped, as in skix, when ``paths.front_root`` is given or the video root
-is missing). The orchestrator writes ``pipeline_timing.json`` and
+is missing). Beside skix's ``front_checkpoint`` and ``front_prompts`` the
+front branch passes ``front_detector``, ``front_detector_checkpoint``,
+``front_tracker``, ``front_tracker_checkpoint`` and ``front_clip`` through
+to the stage's ``detector``, ``detector_checkpoint``, ``tracker``,
+``tracker_checkpoint`` and ``clip`` (skix's branch leaves them at the
+stage's defaults), so run_all runs the sam3 configuration with a CLIP
+checkpoint. The orchestrator writes ``pipeline_timing.json`` and
 ``pipeline_summary.json`` into ``work_root`` as skix does. Each stage gets
 its config as an in-memory mapping (skix writes it to
 ``generated_configs/<stage>.yaml`` first), so a run whose own config is a
@@ -22,7 +28,7 @@ import json
 import logging
 from pathlib import Path
 
-from skix_torch.config import cli_main
+from skix_torch.config import Cfg, cli_main
 from skix_torch.utils.profiling import StageTimer
 
 log = logging.getLogger(__name__)
@@ -30,6 +36,11 @@ log = logging.getLogger(__name__)
 PORTED_STAGES = ("vggt", "prepare_front_results")
 DEFAULT_STAGES = ["videopose3d", "triangulation", "bundle_adjustment", "fuse",
                   "angle", "metrics"]
+
+
+def _plain(node) -> dict:
+    """A config node as plain nested dicts (a stage's mapping config)."""
+    return node.to_dict() if isinstance(node, Cfg) else dict(node or {})
 
 
 @cli_main("run_all")
@@ -88,6 +99,11 @@ def main(cfg):
                 "prompts": list(cfg.get("front_prompts",
                                         ["person", "snow"])),
                 "max_frames": cfg.get("max_frames"),
+                "detector": _plain(cfg.get("front_detector")),
+                "detector_checkpoint": cfg.get("front_detector_checkpoint"),
+                "tracker": _plain(cfg.get("front_tracker")),
+                "tracker_checkpoint": cfg.get("front_tracker_checkpoint"),
+                "clip": _plain(cfg.get("front_clip")),
                 "device": str(cfg.get("device", "cuda")),
             }
             with timer.span("prepare_front_results"):

@@ -4,8 +4,9 @@ Port of ``skix/pipelines/train_detector.py``: the fixed-shape COCO loader
 (:mod:`skix_torch.data`), the detector with its DAC one-to-many queries and
 per-layer aux scores, the matched losses (``sam3_detection_loss`` with the
 IoU-aware BCE and presence terms, ``sam3_mask_loss`` on the full grid), and
-the ``simple`` optimizer scheme: global-norm clipping, then AdamW with a
-cosine-decayed learning rate, as optax computes them. It writes the same
+both optimizer schemes (:func:`build_optimizer`), as optax computes them:
+``simple``, global-norm clipping then AdamW with a cosine-decayed learning
+rate; ``sam3``, the reference's full fine-tuning recipe. It writes the same
 files: ``sam3_detector_{step:06d}.npz`` (skix's flat flax ``params`` npz,
 through the inverse weight bridge) and ``final_eval.json``.
 
@@ -17,9 +18,13 @@ and K5, the 4 global blocks and the 6 fusion-encoder self-attentions K1
 Run: ``python -m skix_torch.pipelines.train_detector coco_json=...`` (the
 card), or ``main({... "device": "cpu"})`` with ``preset: tiny``.
 
-Still to port, each raising ``NotImplementedError``: the ``sam3`` optimizer
-scheme (``skix/models/optim.py``), exact matching (``loss.exact_match``)
-and the PointRend mask loss (``loss.mask_points``).
+``model: {rope_style: sam3, pretrain_img_size: 336}`` with ``optim.scheme:
+sam3`` and a converted ``init_checkpoint`` is the configuration that
+fine-tunes real SAM3 weights; its trunk runs the interleaved rope through
+the same kernels.
+
+Still to port, each raising ``NotImplementedError``: exact matching
+(``loss.exact_match``) and the PointRend mask loss (``loss.mask_points``).
 """
 
 from __future__ import annotations
@@ -37,10 +42,6 @@ from skix_torch.config import cli_main
 from skix_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
-
-_SAM3_OPTIM_SLICE = ("optim.scheme=sam3 (skix/models/optim.py: inverse-sqrt "
-                     "LR, backbone LR, layer decay) comes with a later "
-                     "training slice of the port")
 
 
 def build_detector(cfg, device=None):
@@ -84,75 +85,66 @@ def evaluate_train_ap(model, loader, max_batches: int = 8,
     return float(average_precision(pb, ps, gb, iou_threshold=iou_threshold))
 
 
-def cosine_decay(init_value: float, decay_steps: int, alpha: float = 0.0):
-    """``optax.cosine_decay_schedule``: the learning rate at update count
-    ``count`` (the count before the update), in float32 as optax computes
-    it."""
-    f32 = np.float32
+def build_optimizer(cfg, model, steps: int):
+    """The configured optimizer, a :class:`skix_torch.models.optim.
+    ClippedAdamW` over ``model``'s parameters, as skix's ``build_optimizer``
+    builds its optax chain:
 
-    def schedule(count: int) -> float:
-        c = f32(min(count, decay_steps))
-        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(decay_steps),
-                                             dtype=f32))
-        return float(f32(init_value) * ((f32(1) - f32(alpha)) * cosine
-                                        + f32(alpha)))
+    - ``optim.scheme: simple`` (default): AdamW with a cosine-decayed LR
+      (``lr``, alpha 0.05) and ``weight_decay`` on every parameter;
+    - ``optim.scheme: sam3``: the reference's full fine-tuning recipe,
+      inverse-sqrt LR with warmup (``optim.warmup_steps``, default steps //
+      20; ``cooldown_steps``, ``timescale``), ``optim.lr_backbone`` (default
+      lr/10) on ``backbone/*``, BEiT layer decay ``optim.layer_decay`` on
+      the trunk with ``*pos_embed*`` pinned at 1 (0 disables it), and zero
+      weight decay on ``*/bias`` and ``*/scale``. The patterns match skix's
+      flax paths, which the weight bridge gives each parameter
+      (:func:`skix_torch.convert.flax_path`); a pattern this model has no
+      parameter for is dropped, as skix drops it.
 
-    return schedule
+    Both clip the global gradient norm at ``grad_clip`` first."""
+    from skix_torch.convert import flax_path
+    from skix_torch.models.optim import (ClippedAdamW, LayerDecay,
+                                         OptionRule, construct_optimizer,
+                                         cosine_decay_schedule,
+                                         inverse_sqrt_schedule)
 
-
-class SimpleOptimizer:
-    """skix's ``simple`` scheme, ``optax.chain(clip_by_global_norm(clip),
-    adamw(cosine_decay_schedule(lr, steps, alpha=0.05), weight_decay=wd))``,
-    on a module's parameters.
-
-    Clipping is written by hand, as optax does it: the gradients become
-    ``g / norm * clip`` only when the global norm is at least ``clip``
-    (``torch.nn.utils.clip_grad_norm_`` scales by ``clip / (norm + 1e-6)``
-    whenever it clips). ``torch.optim.AdamW`` given the schedule's rate at
-    each step is optax's adamw: eps 1e-8 outside the square root, weight
-    decay on every parameter, its ``p·(1 − lr·wd)`` being optax's
-    ``−lr·wd·p``."""
-
-    def __init__(self, params, lr: float, steps: int, weight_decay: float,
-                 clip: float):
-        self.params = [p for p in params if p.requires_grad]
-        self.schedule = cosine_decay(lr, steps, alpha=0.05)
-        self.clip = clip
-        self.count = 0
-        self.opt = torch.optim.AdamW(self.params, lr=self.schedule(0),
-                                     betas=(0.9, 0.999), eps=1e-8,
-                                     weight_decay=weight_decay)
-
-    def zero_grad(self):
-        self.opt.zero_grad(set_to_none=True)
-
-    def step(self):
-        # a parameter the loss does not reach (the neck's 0.5× level) has a
-        # zero gradient in jax, and optax still decays it
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
-        norm = float(torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads))))
-        if not norm < self.clip:
-            torch._foreach_div_(grads, norm)
-            torch._foreach_mul_(grads, self.clip)
-        for group in self.opt.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.opt.step()
-        self.count += 1
-        return norm
-
-
-def build_optimizer(cfg, model, steps: int) -> SimpleOptimizer:
-    """The configured optimizer; only ``optim.scheme: simple`` is ported."""
     ocfg = dict(cfg.get("optim", {}) or {})
     clip = float(cfg.get("grad_clip", ocfg.get("grad_clip", 1.0)))
-    if str(ocfg.get("scheme", "simple")) == "sam3":
-        raise NotImplementedError(_SAM3_OPTIM_SLICE)
-    return SimpleOptimizer(model.parameters(), float(cfg.get("lr", 1e-4)),
-                           steps, float(cfg.get("weight_decay", 1e-4)), clip)
+    lr = float(cfg.get("lr", 1e-4))
+    wd = float(cfg.get("weight_decay", 1e-4))
+    if str(ocfg.get("scheme", "simple")) != "sam3":
+        return ClippedAdamW([{"params": list(model.parameters()),
+                              "lr": cosine_decay_schedule(lr, steps, 0.05),
+                              "weight_decay": wd}], clip)
+
+    warmup = int(ocfg.get("warmup_steps", max(steps // 20, 1)))
+    cooldown = int(ocfg.get("cooldown_steps", 0))
+    timescale = int(ocfg.get("timescale", max(warmup, 1)))
+
+    def isr(base):
+        return inverse_sqrt_schedule(base, warmup, cooldown, timescale,
+                                     total_steps=steps)
+
+    lr_backbone = float(ocfg.get("lr_backbone", lr * 0.1))
+    named = [(flax_path(n, p.shape), p) for n, p in model.named_parameters()]
+    options = {
+        "lr": [OptionRule(isr(lr)),
+               OptionRule(isr(lr_backbone), ["backbone/*"])],
+        "weight_decay": [OptionRule(wd),
+                         OptionRule(0.0, ["*/bias", "*/scale"])],
+    }
+    ld = None
+    lrd = float(ocfg.get("layer_decay", 0.0))
+    if lrd:
+        ld = LayerDecay(value=lrd, apply_to="backbone",
+                        minimum=(float(ocfg["layer_decay_min"])
+                                 if "layer_decay_min" in ocfg else None),
+                        overrides={"*pos_embed*": 1.0})
+    opt, groups = construct_optimizer(named, options, clip, ld)
+    log.info("sam3 optim scheme: %d param groups (lr=%g backbone=%g wd=%g "
+             "layer_decay=%g)", len(groups), lr, lr_backbone, wd, lrd)
+    return opt
 
 
 def make_loss_fn(model, cfg, size: int):

@@ -14,8 +14,14 @@ tokens (the fusion encoder's image self-attention, 5184 tokens of head
 dim 32 at 1008 px) goes through the flash kernel K1 (and K3/K4 in the
 backward); every other attention is a plain einsum/softmax, as in skix.
 
-The geometry prompt encoder and the torch-state-dict converters of real
-checkpoints come with later slices: a call that needs them raises.
+``rope_style="sam3"`` with the reference's ``pretrain_img_size`` (336) is
+the trunk configuration that converted SAM3 weights need (the interleaved
+rope through K1/K2, :mod:`skix_torch.tracking.vitdet`). The converters of
+reference state dicts come beside each module:
+:func:`skix_torch.tracking.vitdet.convert_vitdet_state_dict` for the
+trunk, :func:`convert_fusion_encoder` here for the fusion encoder. The
+geometry prompt encoder comes with a later slice: a call that needs it
+raises.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -547,3 +554,49 @@ class Sam3Detector(nn.Module):
                               mask_logits=masks_all[:, :Q],
                               embeddings=dec.queries, presence=pres_logit,
                               aux_boxes=dec.all_boxes, **extra)
+
+
+# --------------------------------------------------------------------------
+# converters of reference state dicts (the keys skix's converters read)
+# --------------------------------------------------------------------------
+def _t(x) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(
+        x.detach().cpu().numpy() if hasattr(x, "detach") else x, np.float32))
+
+
+def _convert_torch_mha(sd, prefix: str) -> dict[str, torch.Tensor]:
+    """torch ``nn.MultiheadAttention`` (packed ``in_proj``) → the
+    ``q``/``k``/``v``/``out`` leaves of :class:`_MHA`, relative to it."""
+    w, b = _t(sd[f"{prefix}.in_proj_weight"]), _t(sd[f"{prefix}.in_proj_bias"])
+    C = w.shape[1]
+    out = {}
+    for i, name in enumerate("qkv"):
+        out[f"{name}.weight"] = w[i * C:(i + 1) * C]
+        out[f"{name}.bias"] = b[i * C:(i + 1) * C]
+    out["out.weight"] = _t(sd[f"{prefix}.out_proj.weight"])
+    out["out.bias"] = _t(sd[f"{prefix}.out_proj.bias"])
+    return out
+
+
+def convert_fusion_encoder_layer(sd, prefix: str = "") -> dict:
+    """The reference's pre-norm ``TransformerEncoderLayer`` (positions at
+    attention) state dict → a :class:`FusionEncoderLayer` ``state_dict``."""
+    out = {}
+    for name in ("norm1", "norm2", "norm3"):
+        for leaf in ("weight", "bias"):
+            out[f"{name}.{leaf}"] = _t(sd[f"{prefix}{name}.{leaf}"])
+    for name in ("self_attn", "cross_attn_image"):
+        out.update({f"{name}.{k}": v for k, v in
+                    _convert_torch_mha(sd, f"{prefix}{name}").items()})
+    for name in ("linear1", "linear2"):
+        for leaf in ("weight", "bias"):
+            out[f"ffn.{name}.{leaf}"] = _t(sd[f"{prefix}{name}.{leaf}"])
+    return out
+
+
+def convert_fusion_encoder(sd, num_layers: int = 6) -> dict:
+    """The reference's fusion encoder stack (``layers.{i}.*``) → a
+    :class:`FusionEncoder` ``state_dict``."""
+    return {f"layer_{i}.{k}": v for i in range(num_layers)
+            for k, v in convert_fusion_encoder_layer(
+                sd, f"layers.{i}.").items()}

@@ -3,15 +3,17 @@
 Port of ``skix/tracking/session.py`` on its ``Sam3Detector`` +
 ``MaskMemoryTracker`` branch (masklet propagation): ``start_session`` →
 ``add_prompt(text=...)`` → ``propagate_in_video`` (streaming) →
-``reset_session`` / ``close_session``. Text prompts use the deterministic
-hash embedding (``smoke_prompts=True``, what skix does without a CLIP
-checkpoint). The compact ``DetrDetector``, box-level tracking without a
-memory tracker, the CLIP text tower and geometric prompts come with later
-slices and raise ``NotImplementedError``.
+``reset_session`` / ``close_session``. Text prompts go through the CLIP
+tower (``clip=(tokenizer, encoder)``: the reference path) or, without one,
+the deterministic hash embedding (``smoke_prompts=True``, skix's smoke
+mode). The compact ``DetrDetector``, box-level tracking without a memory
+tracker and geometric prompts come with later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 from typing import Dict, Iterator, Optional
@@ -29,6 +31,10 @@ class _Session:
     frames: np.ndarray            # (T, H, W, 3) uint8
     prompts: Dict[str, np.ndarray]
     removed_ids: set
+    # text → (L,) bool pad mask (True = padding token) of a CLIP prompt;
+    # hash prompts have none (all tokens valid)
+    prompt_pads: Dict[str, np.ndarray] = dataclasses.field(
+        default_factory=dict)
 
 
 class VideoPredictor:
@@ -39,8 +45,12 @@ class VideoPredictor:
         """``detector``: a :class:`skix_torch.tracking.sam3_detector.
         Sam3Detector` with its weights; ``tracker``: a :class:`skix_torch.
         tracking.memory_tracker.MaskMemoryTracker` on the same device
-        (masklet propagation). ``timer``: optional ``StageTimer`` for the
-        per-frame ``detector``/``tracker``/``outputs`` spans."""
+        (masklet propagation). ``clip``: optional ``(ClipTokenizer,
+        VETextEncoder)`` pair, the encoder with its weights on the
+        detector's device: text prompts then go through the CLIP tower
+        (skix's ``(tokenizer, encoder, variables)`` triple). ``timer``:
+        optional ``StageTimer`` for the per-frame ``detector``/``tracker``/
+        ``outputs`` spans and the per-prompt ``clip`` span."""
         from skix_torch.tracking.sam3_detector import Sam3Detector
 
         if not isinstance(detector, Sam3Detector):
@@ -51,9 +61,7 @@ class VideoPredictor:
             raise NotImplementedError(
                 "box-level tracking without a memory tracker is not ported; "
                 "pass tracker=MaskMemoryTracker(...)")
-        if clip is not None:
-            raise NotImplementedError(
-                "the CLIP text tower comes with its checkpoint's slice")
+        self.clip = clip
         self.detector = detector
         self.tracker = tracker
         self.masklet_cfg = masklet_cfg
@@ -73,20 +81,35 @@ class VideoPredictor:
     def add_prompt(self, session_id: int, text: Optional[str] = None,
                    frame_idx: int = 0, points=None, point_labels=None,
                    boxes_xyxy=None, box_labels=None) -> None:
-        """A text prompt, embedded by the hash smoke embedding tiled to 4
-        tokens (skix's smoke mode)."""
+        """A text prompt: the CLIP tower's resized token memory and pad
+        mask, or (smoke mode) the hash embedding tiled to 4 tokens."""
         if points is not None or boxes_xyxy is not None:
             raise NotImplementedError(
                 "geometric prompts come with the geometry-prompt slice")
         if text is None:
             return
+        s = self.sessions[session_id]
+        if self.clip is not None:
+            tokenizer, encoder = self.clip
+            dev = next(encoder.parameters()).device
+            tokens = torch.as_tensor(tokenizer([text]), device=dev)
+            span = (self.timer.span("clip", sync=dev.type == "cuda")
+                    if self.timer is not None else contextlib.nullcontext())
+            with torch.no_grad(), span:
+                valid, resized, _ = encoder(tokens)
+                s.prompts[text] = resized[0].cpu().numpy()   # (L, d_model)
+                # the encoder's mask is True = valid, the detector's pad
+                # mask True = pad: invert, or the fusion encoder attends to
+                # the ~29 pad tokens of a 32-token prompt
+                s.prompt_pads[text] = ~valid[0].cpu().numpy()
+            return
         if not self.smoke_prompts:
             raise ValueError(
-                "Sam3Detector text prompting needs a CLIP tower, which is "
-                "not ported; pass smoke_prompts=True to opt into the "
-                "deterministic hash embeddings")
+                "Sam3Detector text prompting needs a CLIP tower "
+                "(clip=(tokenizer, encoder)); pass smoke_prompts=True to opt "
+                "into the deterministic hash embeddings")
         vec = embed_text_prompt(text, self.detector.d_model)
-        self.sessions[session_id].prompts[text] = np.tile(vec[None], (4, 1))
+        s.prompts[text] = np.tile(vec[None], (4, 1))
 
     def remove_object(self, session_id: int, obj_id: int) -> None:
         self.sessions[session_id].removed_ids.add(int(obj_id))
@@ -94,13 +117,14 @@ class VideoPredictor:
     def reset_session(self, session_id: int) -> None:
         s = self.sessions[session_id]
         s.prompts.clear()
+        s.prompt_pads.clear()
         s.removed_ids.clear()
 
     def close_session(self, session_id: int) -> None:
         self.sessions.pop(session_id, None)
 
-    def _propagate_masklets(self, s: _Session, prompt,
-                            idx_map) -> Iterator[dict]:
+    def _propagate_masklets(self, s: _Session, prompt, idx_map,
+                            text_pad=None) -> Iterator[dict]:
         """Masklet propagation over one ordered frame segment (forward, or
         a descending backward pass with the lifecycle's comparisons
         flipped); renames ``boxes`` → ``bbox`` and applies
@@ -114,9 +138,12 @@ class VideoPredictor:
         mdl = MaskletVideoModel(self.detector, self.tracker, cfg,
                                 timer=self.timer)
         frames = np.ascontiguousarray(s.frames[np.asarray(idx_map)])
+        if text_pad is not None:
+            text_pad = torch.as_tensor(text_pad, device=mdl.device)
         stream = mdl.propagate(frames, torch.as_tensor(prompt),
                                include_lowres_logits=False,
-                               start_frame=int(idx_map[0]))
+                               start_frame=int(idx_map[0]),
+                               text_pad=text_pad)
         for item in stream:
             out = item["outputs"]
             out_np = {"mask": out["mask"], "bbox": out["boxes"],
@@ -159,4 +186,5 @@ class VideoPredictor:
         for idx_map in segments:
             if idx_map:
                 yield from self._propagate_masklets(
-                    s, s.prompts[prompt_text], idx_map)
+                    s, s.prompts[prompt_text], idx_map,
+                    s.prompt_pads.get(prompt_text))

@@ -1,14 +1,26 @@
 """ViT-Det backbone with windowed attention + SimpleFPN neck.
 
-Port of ``skix/tracking/vitdet.py`` with ``rope_style="skix"`` and
-``window_flash=True``, the stage's defaults:
+Port of ``skix/tracking/vitdet.py`` with ``window_flash=True``:
 
 - the 72×72 grid (1008 px, patch 14) splits into 3×3 windows of 24²
   tokens; every window block attends through the single-tile kernel (K2,
-  block == ws²) with the 2D rope fused from tables on WINDOW-LOCAL
+  block == ws²) with the rope fused from tables on WINDOW-LOCAL
   coordinates (the rope's logits depend only on coordinate differences, so
   local coordinates give the global-coordinate result); the global blocks
   (7, 15, 23, 31) go through K1 with tables on the global grid;
+- the rope is skix's own (``rope_style="skix"``, the default: rope_2d,
+  y then x, rotate-half, freq ``rope_freq``) or the reference SAM3
+  ViT-Det's (``rope_style="sam3"``, which converted SAM3 weights need:
+  :func:`axial_rope_angles`, x then y, theta 10000, interleaved pairs).
+  skix sends the sam3 rope through an ``attn_fn``
+  (``_sam3_rope_attention``); here it is a
+  :class:`~skix_torch.ops.attention.RopeTables` of style
+  ``"interleaved"`` that the blocks pass to K1/K2 (K3/K4/K5 in the
+  backward), with no rope_2d on top (skix's ``rope_freq=-1``);
+- ``pretrain_img_size`` sizes the absolute position table (336 px → a
+  24×24 table tiled 3×3 over the 72×72 grid);
+  :func:`convert_vitdet_state_dict` reads a reference SAM3 ViT-Det state
+  dict into this module;
 - the SimpleFPN neck hangs four scale branches (4×, 2×, 1×, 0.5×) off the
   last trunk feature, each ending in 1×1 + 3×3 convs to ``d_model``, with
   sine-cosine position maps.
@@ -20,14 +32,13 @@ block in ``torch.utils.checkpoint`` (skix's ``nn.remat``): its activations
 are recomputed in the backward, so its forward kernels launch twice. It is
 off by default, as in skix.
 
-The reference's interleaved axial rope (``rope_style="sam3"``), which only
-converted SAM3 weights need, and the XLA-attention A/B path
-(``window_flash=False``) raise.
+The XLA-attention A/B path (``window_flash=False``) raises.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -38,10 +49,8 @@ from torch.utils.checkpoint import checkpoint
 
 from skix_torch.models.layers import (Block, Conv, ConvTranspose, LayerNorm,
                                       PatchEmbed, make_grid_positions)
-from skix_torch.ops.attention import rope_2d_tables
-
-_INTERLEAVED_ROPE_SLICE = ("the interleaved-rope slice of the port (K1's "
-                           "interleaved rope, for converted SAM3 weights)")
+from skix_torch.ops.attention import (RopeTables, interleaved_rope_tables,
+                                      rope_2d_tables)
 
 
 def window_partition(x, window_size: int):
@@ -80,10 +89,8 @@ class ViTDetBackbone(nn.Module):
                  remat: bool = False, window_flash: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if rope_style != "skix":
-            raise NotImplementedError(
-                f"rope_style={rope_style!r} comes with "
-                f"{_INTERLEAVED_ROPE_SLICE}; 'skix' is ported")
+        if rope_style not in ("skix", "sam3"):
+            raise ValueError(f"rope_style {rope_style!r}: 'skix' or 'sam3'")
         if not window_flash:
             raise NotImplementedError(
                 "window_flash=False (XLA window attention, an A/B option of "
@@ -96,6 +103,7 @@ class ViTDetBackbone(nn.Module):
         self.img_size, self.patch_size = img_size, patch_size
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.window_size, self.rope_freq = window_size, rope_freq
+        self.rope_style = rope_style
         self.global_att_blocks = tuple(global_att_blocks)
         self.remat = remat
         self.dtype = dtype
@@ -121,8 +129,12 @@ class ViTDetBackbone(nn.Module):
         if self.ln_pre is not None:
             x = self.ln_pre(x)
         hd, ws, dev = C // self.num_heads, self.window_size, images.device
-        rope_glob = _grid_rope_tables(gh, gw, hd, self.rope_freq, dev)
-        rope_win = _grid_rope_tables(ws, ws, hd, self.rope_freq, dev)
+        if self.rope_style == "sam3":
+            rope_glob = _sam3_rope_tables(gh, gw, hd, dev)
+            rope_win = _sam3_rope_tables(ws, ws, hd, dev)
+        else:
+            rope_glob = _grid_rope_tables(gh, gw, hd, self.rope_freq, dev)
+            rope_win = _grid_rope_tables(ws, ws, hd, self.rope_freq, dev)
         glob = set(self.global_att_blocks)
         for i in range(self.depth):
             blk = getattr(self, f"block_{i}")
@@ -142,8 +154,85 @@ class ViTDetBackbone(nn.Module):
 def _grid_rope_tables(gh: int, gw: int, hd: int, freq: float, device):
     """The rope tables of a gh × gw grid on ``device``, built once per
     layout (skix builds them while tracing)."""
-    return rope_2d_tables(torch.as_tensor(make_grid_positions(gh, gw),
-                                          device=device), hd, freq)
+    return RopeTables(*rope_2d_tables(torch.as_tensor(
+        make_grid_positions(gh, gw), device=device), hd, freq))
+
+
+def axial_rope_angles(gh: int, gw: int, head_dim: int,
+                      theta: float = 10000.0,
+                      scale_pos: float = 1.0) -> np.ndarray:
+    """The reference ViT-Det's rope angles (``compute_axial_cis``): token
+    t at (x = t % gw, y = t // gw); the first head_dim/4 pairs rotate by
+    x·freqs, the next head_dim/4 by y·freqs. ``(gh·gw, head_dim/2)``
+    float32 angles, one per interleaved pair."""
+    freqs = 1.0 / (theta ** (np.arange(0, head_dim, 4)[: head_dim // 4]
+                             / head_dim))
+    t = np.arange(gh * gw, dtype=np.float32)
+    t_x = (t % gw) * scale_pos
+    t_y = (t // gw) * scale_pos
+    ang_x = np.outer(t_x, freqs)
+    ang_y = np.outer(t_y, freqs)
+    return np.concatenate([ang_x, ang_y], axis=-1).astype(np.float32)
+
+
+def apply_rope_interleaved(x, angles):
+    """The reference's rotation of interleaved pairs, ``x (..., N, D)``
+    viewed as ``(..., N, D/2, 2)`` (``apply_rotary_enc``), in plain torch:
+    what the fused tables of :func:`_sam3_rope_tables` compute."""
+    shape = x.shape
+    xr = x.reshape(*shape[:-1], shape[-1] // 2, 2)
+    a, b = xr[..., 0], xr[..., 1]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    out = torch.stack([a * cos - b * sin, a * sin + b * cos], dim=-1)
+    return out.reshape(shape).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _sam3_rope_tables(gh: int, gw: int, hd: int, device):
+    """The sam3 rope of a gh × gw grid on ``device`` as interleaved-style
+    tables (skix's ``_sam3_rope_attention``), built once per layout."""
+    angles = torch.as_tensor(axial_rope_angles(gh, gw, hd), device=device)
+    return RopeTables(*interleaved_rope_tables(angles), "interleaved")
+
+
+def convert_vitdet_state_dict(sd) -> dict[str, torch.Tensor]:
+    """A reference SAM3 ViT-Det state dict (``patch_embed.proj.*``,
+    ``pos_embed``, ``ln_pre.*``, ``blocks.{i}.{norm1,attn.qkv,attn.proj,
+    norm2,mlp.fc1,mlp.fc2}.*``) → this module's ``state_dict``, reading
+    the keys skix's ``convert_vitdet_state_dict`` reads. Use with
+    ``rope_style="sam3"``, the reference's ``pretrain_img_size`` and
+    ``ln_pre``. The sequence ``pos_embed`` loses its cls entry when it has
+    one and becomes the (1, side, side, C) table; a reference without a
+    patch bias gets a zero one; the rope has no weights. Torch layouts
+    are the port's, so every other tensor is copied under its name."""
+    def t(x):
+        return torch.as_tensor(np.asarray(
+            x.detach().cpu().numpy() if hasattr(x, "detach") else x,
+            np.float32))
+
+    w = t(sd["patch_embed.proj.weight"])            # (C, 3, p, p)
+    out = {"patch_embed.proj.weight": w,
+           "patch_embed.proj.bias": (t(sd["patch_embed.proj.bias"])
+                                     if "patch_embed.proj.bias" in sd
+                                     else torch.zeros(w.shape[0]))}
+    pos = t(sd["pos_embed"])                        # (1, P(+1), C)
+    side = math.isqrt(pos.shape[1])
+    if side * side != pos.shape[1]:                 # a cls entry: drop it
+        pos = pos[:, 1:]
+        side = math.isqrt(pos.shape[1])
+    out["pos_embed"] = pos.reshape(1, side, side, -1)
+    if "ln_pre.weight" in sd:
+        out["ln_pre.weight"] = t(sd["ln_pre.weight"])
+        out["ln_pre.bias"] = t(sd["ln_pre.bias"])
+    i = 0
+    while f"blocks.{i}.norm1.weight" in sd:
+        for name in ("norm1", "norm2", "attn.qkv", "attn.proj", "mlp.fc1",
+                     "mlp.fc2"):
+            for leaf in ("weight", "bias"):
+                out[f"block_{i}.{name}.{leaf}"] = t(
+                    sd[f"blocks.{i}.{name}.{leaf}"])
+        i += 1
+    return out
 
 
 @functools.lru_cache(maxsize=16)

@@ -242,3 +242,95 @@ def test_cuda_lse_matches_plain(cuda, shape_q, Sk, dtype):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-5 if dtype ==
                                torch.float32 else 1e-3, rtol=0)
+
+
+def _style_tables(cuda, style, S, D):
+    """Tables of each rope style: the sam3 axial angles (interleaved) or
+    random 3D positions (segments, axes (8, 12, 8) of D = 32)."""
+    if style == "interleaved":
+        from skix_torch.tracking.vitdet import axial_rope_angles
+
+        side = math.isqrt(S)
+        gh, gw = (side, side) if side * side == S else (1, S)
+        return A.interleaved_rope_tables(torch.as_tensor(
+            axial_rope_angles(gh, gw, D), device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(6)
+    return A.rope_3d_tables(torch.randint(0, 12, (S, 3), generator=g,
+                                          device=cuda), D, style[1])
+
+
+STYLE_CASES = [
+    # (shape, dtype, style, single tile)
+    ((1, 16, 5184, 64), torch.float32, "interleaved", False),  # global
+    ((9, 16, 576, 64), torch.float32, "interleaved", True),    # windows
+    ((2, 3, 1000, 64), torch.float32, "interleaved", False),   # ragged
+    ((2, 4, 576, 64), torch.bfloat16, "interleaved", True),
+    ((1, 2, 64, 32), torch.float32, ("segments", (8, 12, 8)), False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,style,single", STYLE_CASES)
+def test_cuda_rope_styles_match_plain(cuda, shape, dtype, style, single):
+    """K1 or K2 with the interleaved or segmented rope, its lse, and its
+    backward (K3 + K4, or K5) against the plain versions on the same
+    inputs; the launches are counted under the style."""
+    B, H, S, D = shape
+    q, k, v = _qkv(cuda, shape, shape, dtype, seed=9)
+    do = _qkv(cuda, shape, shape, dtype, seed=10)[0]
+    cos, sin = _style_tables(cuda, style, S, D)
+    sm = 1 / math.sqrt(D)
+    fwd = "flash_fwd_single_tile" if single else "flash_fwd"
+    kernels = A._BACKWARD_OF[fwd]
+    before = dict(A.LAUNCHES_BY_STYLE)
+    with torch.no_grad():
+        o, lse = A._launch(fwd, q, k, v, sm, None, cos, sin, True, style)
+        di = (o.float() * do.float()).sum(-1)
+        got = A._launch_backward(kernels, q, k, v, do, lse, di, sm, cos, sin,
+                                 style)
+        torch.cuda.synchronize()
+        ref, ref_lse = A.attention_reference(q, k, v, sm, None, cos, sin,
+                                             True, style)
+        ref_g = A.attention_backward_reference(q, k, v, do, lse, di, sm, cos,
+                                               sin, style)
+    name = A.style_name(style)
+    for key in (fwd + "_lse", *kernels):
+        assert A.LAUNCHES_BY_STYLE[f"{key}/{name}"] == \
+            before.get(f"{key}/{name}", 0) + 1
+    f32 = dtype == torch.float32
+    torch.testing.assert_close(o.float(), ref.float(), rtol=0,
+                               atol=1e-5 if f32 else 4e-3)
+    if f32:
+        torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+    for a, b in zip(got, ref_g):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=(
+            1e-5 if f32 else 2e-2) * b.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_vitdet_sam3_matches_cpu(cuda):
+    """The sam3 ViT-Det trunk (interleaved rope through K2 and K1) on the
+    card against the same weights on the CPU (plain versions)."""
+    from skix_torch.tracking.vitdet import ViTDetBackbone
+
+    kw = dict(img_size=112, patch_size=14, embed_dim=64, depth=2,
+              num_heads=2, mlp_ratio=4.0, window_size=4,
+              global_att_blocks=(1,), rope_style="sam3",
+              pretrain_img_size=56)
+    cpu = ViTDetBackbone(**kw)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.normal_(0.0, 0.1, generator=g)
+    card = ViTDetBackbone(**kw).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    img = torch.randn((1, 112, 112, 3), generator=g)
+    before = dict(A.LAUNCHES_BY_STYLE)
+    with torch.no_grad():
+        want = cpu(img)
+        got = card(img.to(cuda))
+    assert A.LAUNCHES_BY_STYLE["flash_fwd_single_tile/interleaved"] == \
+        before.get("flash_fwd_single_tile/interleaved", 0) + 1
+    assert A.LAUNCHES_BY_STYLE["flash_fwd/interleaved"] == \
+        before.get("flash_fwd/interleaved", 0) + 1
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)

@@ -94,8 +94,10 @@ def test_vitdet_remat_gives_the_same_gradients():
 def test_vitdet_refuses_what_is_not_ported():
     from skix_torch.tracking.vitdet import ViTDetBackbone
 
-    with pytest.raises(NotImplementedError, match="interleaved-rope"):
-        ViTDetBackbone(**TINY_VIT, rope_style="sam3")
+    # rope_style "sam3" is ported (tests/test_torch_vitdet_sam3.py); a
+    # style skix does not have is refused
+    with pytest.raises(ValueError, match="rope_style"):
+        ViTDetBackbone(**TINY_VIT, rope_style="axial")
     with pytest.raises(NotImplementedError, match="window_flash"):
         ViTDetBackbone(**TINY_VIT, window_flash=False)
 

@@ -343,8 +343,6 @@ def test_port_refuses_what_is_not_ported(coco, tmp_path):
     base = {"paths": {"checkpoint_dir": str(tmp_path)}, "coco_json": str(jp),
             "image_root": str(root), "steps": 1, "eval_ap": False,
             "device": "cpu", "batch_size": 2, "max_objects": 2}
-    with pytest.raises(NotImplementedError, match="sam3"):
-        port_train.main({**base, "optim": {"scheme": "sam3"}})
     with pytest.raises(NotImplementedError, match="PointRend"):
         port_train.main({**base, "loss": {"mask_points": 64}})
     with pytest.raises(NotImplementedError, match="auction"):
