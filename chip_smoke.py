@@ -6,12 +6,17 @@ Phases, one line each (the last line is the JSON verdict):
 
 1. device     the card's name and power limit (nvidia-smi);
 2. build      every CUDA kernel of the main paths, from skix_torch/ops/csrc,
-              one nvcc process per source, all started together;
+              one nvcc process per source, all started together; each
+              kernel's registers, spills and shared memory (-Xptxas -v, the
+              forward core's dynamic shared memory from its library) and
+              the count of HGMMA (wgmma) instructions in the SASS of K1 and
+              K2 (cuobjdump -sass), which fails the phase at 0;
 3. kernel     each forward kernel against its plain PyTorch version on the
               card at the main paths' shapes, with its time (CUDA events),
               the plain version's, F.scaled_dot_product_attention's on the
               same pre-roped inputs (a yardstick only) and the bound of the
-              card: K1 (flash_fwd) at the VGGT and SAM3 shapes, K1 with its
+              card (float32 as split-TF32: three tf32 products at 495
+              TFLOP/s; the FMA bound of 67 TFLOP/s beside it): K1 (flash_fwd) at the VGGT and SAM3 shapes, K1 with its
               lse output (flash_fwd_lse) at the memory tracker's shape and
               the training shapes, K2 (flash_fwd_single_tile, and with its
               lse) at the ViT-Det window shape, and a small ragged case of
@@ -25,6 +30,9 @@ Phases, one line each (the last line is the JSON verdict):
               the window shape, ragged and bf16 cases, the same with the
               interleaved rope and K3/K4 with the segmented rope; the
               yardstick is autograd through SDPA, its backward alone;
+   window_probe K2's probes B1-B7 (skix_torch.ops.window_probe): each
+              compile-time variant against its plain version on the card,
+              then its time, spread and share of the bound;
 4. reference  the VGGT stage at a small width in float32 on the card
               (kernels) and on the CPU (plain versions), same weights, same
               records;
@@ -64,7 +72,8 @@ Phases, one line each (the last line is the JSON verdict):
               sam3, optim.scheme sam3 and the converted detector as its
               initial weights, launches by kernel and rope style;
 10. kernels   one JSON object per kernel (and K1/K2 mode) of the paths, its
-              rope styles under "modes".
+              rope styles under "modes", then one per TPU probe B1-B7 (K2's
+              variants, launched on no path) with its variants' rows.
 
 cuDNN's TF32 is turned off in phase 4 (float32 convolutions, to compare
 card and CPU) and stays off for the phases after it; matmuls keep
@@ -88,6 +97,10 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12,         # dense tensor-core bf16
                   "float32": 67e12}           # f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12                       # dense tensor-core tf32
+# the forward kernels' float32 products: split-TF32, three tf32 products
+# (lo*hi + hi*lo + hi*hi) per f32 product (skix_torch/ops/csrc/flash_tc.cuh)
+F32_TF32_PASSES = 3
 KERNELS = {  # name → (source, the TPU kernel it replaces)
     "flash_fwd": ("skix_torch/ops/csrc/flash_fwd.cu",
                   "skix/ops/attention.py:184"),
@@ -168,6 +181,75 @@ def reset_counts() -> None:
 
 
 # --------------------------------------------------------------------------
+# phase 2: the build
+# --------------------------------------------------------------------------
+def ptxas_entries(log: str):
+    """Per kernel entry of an ``nvcc -Xptxas -v`` report: ``[name,
+    registers, spill stores, spill loads, static shared memory]``."""
+    import re
+
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = [m.group(1), None, None, None, 0]
+            rows.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            n = re.findall(r"(\d+) bytes spill", ln)
+            cur[2], cur[3] = int(n[0]), int(n[1])
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur[1] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur[4] = int(m.group(1)) if m else 0
+    names = [r[0] for r in rows]
+    try:        # demangled, where binutils is installed
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(rows):
+            for r, n in zip(rows, out.stdout.splitlines()):
+                r[0] = (n.replace("(anonymous namespace)::", "")
+                        .removeprefix("void ").split("(")[0])
+    except OSError:
+        pass
+    return rows
+
+
+def build_phase(sources):
+    """Build every kernel source (one nvcc each, all at once); print each
+    kernel's registers, spills and shared memory (``-Xptxas -v``; the
+    forward core's dynamic shared memory from its library) and the number
+    of HGMMA (wgmma) instructions in the SASS of K1 and K2, which must not
+    be 0."""
+    import ctypes
+
+    from skix_torch.ops import _build
+
+    t0 = time.perf_counter()
+    libs = _build.build(sources)
+    say("build", seconds=round(time.perf_counter() - t0, 2))
+    for s in sources:
+        for name, regs, st, ld, smem in ptxas_entries(_build.build_log(s)):
+            say("build", source=s, kernel=json.dumps(name).replace(" ", ""),
+                registers=regs, spill_stores=st, spill_loads=ld,
+                static_smem=smem)
+    fwd = ctypes.CDLL(str(libs["flash_fwd"]))
+    fwd.skix_flash_fwd_smem_bytes.restype = ctypes.c_longlong
+    say("build", forward_dynamic_smem=json.dumps(
+        {f"{dt}/D{D}": fwd.skix_flash_fwd_smem_bytes(D, code)
+         for dt, code in (("float32", 0), ("bfloat16", 1))
+         for D in (32, 64, 128)}).replace(" ", ""))
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    for s in ("flash_fwd", "flash_fwd_single_tile"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(libs[s])],
+                              capture_output=True, text=True, timeout=300)
+        n = sum("HGMMA" in ln for ln in sass.stdout.splitlines())
+        say("build", source=s, hgmma_instructions=n)
+        if sass.returncode != 0 or n == 0:
+            fail(f"{s}: no HGMMA instruction in its SASS (cuobjdump exit "
+                 f"{sass.returncode})")
+
+
+# --------------------------------------------------------------------------
 # phase 3: the kernels against their plain versions
 # --------------------------------------------------------------------------
 def cuda_ms(fn, reps: int) -> float:
@@ -189,11 +271,14 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def attention_bound_ms(q, k, rope: bool, lse: bool):
-    """The least time the card needs: each distinct input element read once
-    (a q shared by every batch row counts once), o (and the lse) written
-    once, the f32 rope tables read once, against 4·B·H·Sq·Sk·D operations
-    (QKᵀ and P·V) at the peak rate of the input type; the larger of the
-    two."""
+    """The least time the card needs for K1 or K2: each distinct input
+    element read once (a q shared by every batch row counts once), o (and
+    the lse) written once, the f32 rope tables read once, against 4·B·H·Sq·
+    Sk·D operations (QKᵀ and P·V) at the rate the kernel's products run at:
+    bf16 at 989 TFLOP/s, float32 as F32_TF32_PASSES tf32 products at 495;
+    the larger of the two. Also the float32 FMA bound (67 TFLOP/s) that a
+    kernel on the FMA units would face, which this one does not: ``(ms,
+    bound_by, fma_ms)``, fma_ms None for bf16."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     item = q.element_size()
@@ -205,8 +290,13 @@ def attention_bound_ms(q, k, rope: bool, lse: bool):
         nbytes += 4 * B * H * Sq
     ops = 4.0 * B * H * Sq * Sk * D
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[str(q.dtype).split(".")[-1]] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    f32 = q.element_size() == 4
+    t_ops = (F32_TF32_PASSES * ops / TF32_OPS_PER_S if f32
+             else ops / PEAK_OPS_PER_S["bfloat16"]) * 1e3
+    fma_ms = (max(t_bytes, ops / PEAK_OPS_PER_S["float32"] * 1e3) if f32
+              else None)
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", fma_ms)
 
 
 def plain_chunked(q, k, v, kw, lse: bool, rows: int = 2048):
@@ -354,13 +444,14 @@ def check_kernel(case, gen):
             say("kernel", name=name, case=label, library_error=json.dumps(
                 str(e)[:200]))
             lib_ms = None
-    bound, bound_by = attention_bound_ms(q, k, rope, lse)
+    bound, bound_by, fma_ms = attention_bound_ms(q, k, rope, lse)
     row = {"name": name, "case": label, "shape_q": list(shape), "Sk": Sk,
            "dtype": str(dtype).split(".")[-1], "fixed_max": fixed_max,
            "rope": style_label(rope), "max_abs_err": err, "tol": atol,
            "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
-           "bound_by": bound_by}
+           "bound_by": bound_by, "fma_bound_ms": fma_ms,
+           "bound_share": bound / ms}
     if lse:
         row["lse_max_abs_err"] = lse_err
     say("kernel", **row)
@@ -615,6 +706,65 @@ def backward_cases():
         ("flash_fwd", "segments", (1, 2, 64, 32), 64, f32, None,
          ("segments", SEGMENT_AXES), 1e-5),
     ]
+
+
+# --------------------------------------------------------------------------
+# phase 3c: K2's probes
+# --------------------------------------------------------------------------
+def window_probe_phase():
+    """skix_torch.ops.window_probe: every variant of B1-B7 held against its
+    plain version on the card, then timed; one line per variant (time,
+    spread, share of the bound)."""
+    import torch
+
+    from skix_torch.ops import window_probe as W
+
+    def show(r):
+        say("window_probe", **{k: (json.dumps(v).replace(" ", "")
+                                   if isinstance(v, list) else v)
+                               for k, v in r.items()})
+
+    try:
+        rows = W.run(reps=20, say=show)
+    except RuntimeError as e:
+        fail(str(e))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def probe_entries(probe_rows):
+    """One kernels-line entry per TPU probe B1-B7: K2's variants, no main
+    path launches them. ms, plain, SDPA and bound are its first variant's;
+    B6's library time is torch.matmul of the same score products; B7's
+    times are the A/B's kv_other_major median, checked under B3."""
+    from skix_torch.ops import window_probe as W
+
+    out = []
+    for row, (script, kline, call, question) in W.PROBES.items():
+        mine = [r for r in probe_rows if r["row"] == row]
+        checked = [r for r in mine if "max_abs_err" in r]
+        if row == "B7":
+            ab = mine[0]
+            head = dict(next(r for r in probe_rows if r["row"] == "B3"
+                             and r["variant"] == "kv_other_major"),
+                        ms=ab["kv_other_major_ms"])
+            checked = [head]
+        else:
+            head = checked[0]
+        lib = head.get("library_ms")
+        if row == "B6":
+            lib = next(r["ms"] for r in mine if r["variant"] == "matmul_scores"
+                       and r["dtype"] == head["dtype"])
+        out.append({
+            "name": f"window_probe_{row}", "route": "cuda",
+            "source": KERNELS["flash_fwd_single_tile"][0],
+            "replaces": f"{script}:{kline}", "pallas_call": f"{script}:{call}",
+            "question": question, "launches": 0,
+            "max_abs_err": max(r["max_abs_err"] for r in checked),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": lib, "variants": mine})
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1557,14 +1707,7 @@ def main() -> int:
         cuda=torch.version.cuda)
 
     # 2. build
-    t0 = time.perf_counter()
-    sources = sorted({Path(src).stem for src, _ in KERNELS.values()})
-    _build.build(sources)
-    for s in sources:
-        regs = [ln.strip() for ln in _build.build_log(s).splitlines()
-                if "registers" in ln or "spill" in ln]
-        say("build", source=s, ptxas=json.dumps(regs).replace(" ", ""))
-    say("build", seconds=round(time.perf_counter() - t0, 2))
+    build_phase(sorted({Path(src).stem for src, _ in KERNELS.values()}))
 
     # 3. kernels against plain, at the main paths' shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1573,6 +1716,8 @@ def main() -> int:
     for c in backward_cases():
         rows += check_backward(c, gen)
         torch.cuda.empty_cache()
+    # 3c. K2's probes B1-B7, each variant against its plain version
+    probe_rows = window_probe_phase()
 
     with tempfile.TemporaryDirectory(prefix="skix_chip_smoke_") as tmpdir:
         tmp = Path(tmpdir)
@@ -1657,6 +1802,7 @@ def main() -> int:
                 "errs", "grad_scale", "lse_max_abs_err", "tol", "ms",
                 "plain_ms", "library_ms", "bound_ms", "bound_by")}
                 for r in mine]})
+    kernels += probe_entries(probe_rows)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

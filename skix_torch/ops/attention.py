@@ -9,9 +9,12 @@ CUDA C++ kernels, built for ``sm_90a`` at first use
   ``skix_torch/ops/csrc/flash_fwd.cu``: online softmax over kv tiles, with
   an optional base-2 log-partition output;
 - K2 (``_fwd_kernel_single_tile``, ``:313``) →
-  ``skix_torch/ops/csrc/flash_fwd_single_tile.cu``: the exact one-pass
-  softmax that skix's dispatcher (``:459-464``) picks when the whole
-  sequence is one tile;
+  ``skix_torch/ops/csrc/flash_fwd_single_tile.cu``: the kernel skix's
+  dispatcher (``:459-464``) picks when the whole sequence is one tile;
+  K1 and K2 share one tensor-core core, ``csrc/flash_tc.cuh`` (wgmma
+  products, cp.async-fed tiles; float32 as split-TF32, three tf32
+  products per f32 product), and K2 carries the compile-time variants
+  that ``skix_torch.ops.window_probe`` times;
 - K3 (``_bwd_dkv_kernel``, ``:558``) and K4 (``_bwd_dq_kernel``, ``:631``)
   → ``skix_torch/ops/csrc/flash_bwd.cu``: dK/dV per kv tile and dQ per q
   tile, two launches;
@@ -91,7 +94,6 @@ LAUNCHES: collections.Counter = collections.Counter()
 LAUNCHES_BY_STYLE: collections.Counter = collections.Counter()
 
 _KERNEL_HEAD_DIMS = (32, 64, 128)
-_MAX_SMEM_PER_BLOCK = 232448     # H100: 227 KB of dynamic shared memory
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -413,9 +415,10 @@ def _kernel_lib(source: str):
             fn.restype = i32
             getattr(lib, errs).argtypes = [i32]
             getattr(lib, errs).restype = ctypes.c_char_p
-        if source == "flash_fwd_single_tile":
-            lib.skix_single_tile_smem_bytes.argtypes = [i32, i32]
-            lib.skix_single_tile_smem_bytes.restype = i64
+        if source == "flash_fwd":
+            lib.skix_rope_rows.argtypes = ([ptr] * 5 + [i32] * 5 + [i64] * 3
+                                           + [i32, f32, ptr])
+            lib.skix_rope_rows.restype = i32
         lib._skix_typed = True
     return lib
 
@@ -467,6 +470,18 @@ def _check_args(q, k, v, rope_cos, rope_sin, rope_rotate="half"):
     return q, k, v, None, None, None
 
 
+def _aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with a 16-byte-aligned base and (b, h, s) strides, as the
+    forward kernels' 16-byte loads and cp.async need: a copy only where a
+    view is misaligned (a stride 0 is aligned). The rope tables, contiguous
+    (S, D) rows of D ≥ 32 floats, need an aligned base only."""
+    item = x.element_size()
+    if x.data_ptr() % 16 == 0 and all(s * item % 16 == 0
+                                       for s in x.stride()[:3]):
+        return x
+    return x.contiguous() if not x.is_contiguous() else x.clone()
+
+
 def _empty_like_heads(x):
     """An uninitialised (B, H, S, D) tensor stored as (B, S, H, D): the
     caller's transpose back to token-major order is then free."""
@@ -481,23 +496,48 @@ def _count(key: str, rope_cos, rope_rotate) -> None:
     LAUNCHES_BY_STYLE[f"{key}/{style}"] += 1
 
 
+def _rope_pass(x, cos, sin, rot, mul):
+    """K1's and K2's rope pass (``skix_rope_rows``): ``x∘cos + rot(x)∘sin``
+    in f32, times ``mul`` unless it is None, rounded to x's dtype, as a new
+    contiguous (B, H, S, D) tensor: what the TPU kernels stage as the roped
+    q (times sm_scale·log2e) and k."""
+    lib = _kernel_lib("flash_fwd")
+    B, H, S, D = x.shape
+    out = torch.empty((B, H, S, D), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.skix_rope_rows(
+            x.data_ptr(), out.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            rot.data_ptr() if rot is not None else None, B, H, S, D,
+            _DTYPE_CODES[x.dtype], *x.stride()[:3], int(mul is not None),
+            mul if mul is not None else 1.0,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("rope pass failed: "
+                           + lib.skix_cuda_error_string(err).decode())
+    return out
+
+
 def _launch(kernel: str, q, k, v, sm_scale, fixed_max, rope_cos, rope_sin,
             with_lse: bool, rope_rotate="half"):
     """Launch K1 (``flash_fwd``) or K2 (``flash_fwd_single_tile``) on q's
-    stream; returns ``o`` or ``(o, lse)``. Raises on anything the kernel
-    does not take and on a failed launch."""
+    stream; returns ``o`` or ``(o, lse)``. With rope, the rope pass first
+    ropes and rounds q (times sm_scale·log2e) and k once for the call, and
+    the kernel scales q by 1. Raises on anything the kernel does not take
+    and on a failed launch."""
     q, k, v, rope_cos, rope_sin, rot = _check_args(q, k, v, rope_cos,
                                                    rope_sin, rope_rotate)
+    q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
+    scale_log2 = float(np.float32(sm_scale * _LOG2E))
+    if rope_cos is not None:
+        rope_cos, rope_sin = (t if t.data_ptr() % 16 == 0 else t.clone()
+                              for t in (rope_cos, rope_sin))
+        q = _rope_pass(q, rope_cos, rope_sin, rot, scale_log2)
+        k = _rope_pass(k, rope_cos, rope_sin, rot, None)
+        scale_log2 = 1.0
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     source, entry, errs, _ = _KERNELS[kernel]
     lib = _kernel_lib(source)
-    if kernel == "flash_fwd_single_tile":
-        need = lib.skix_single_tile_smem_bytes(Sk, D)
-        if need > _MAX_SMEM_PER_BLOCK:
-            raise ValueError(f"single-tile attention over Sk={Sk} keys needs "
-                             f"{need} B of shared memory per block, more "
-                             f"than the card's {_MAX_SMEM_PER_BLOCK}")
     o = _empty_like_heads(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -505,13 +545,10 @@ def _launch(kernel: str, q, k, v, sm_scale, fixed_max, rope_cos, rope_sin,
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if with_lse else None,
-            rope_cos.data_ptr() if rope_cos is not None else None,
-            rope_sin.data_ptr() if rope_sin is not None else None,
-            rot.data_ptr() if rot is not None else None,
+            lse.data_ptr() if with_lse else None, None, None, None,
             B, H, Sq, Sk, D, _DTYPE_CODES[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *o.stride()[:3], float(np.float32(sm_scale * _LOG2E)), int(fixed),
+            *o.stride()[:3], scale_log2, int(fixed),
             float(np.float32(fixed_max * _LOG2E)) if fixed else 0.0,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

@@ -1,8 +1,8 @@
-// Pieces shared by the attention kernels of skix_torch (flash_fwd.cu,
-// flash_fwd_single_tile.cu): dtype conversions, the rounding helpers that
-// repeat the TPU kernels' casts, the rope's rotation by code table, the tile
-// loader with the fused rope, half-warp reductions and the output-column map
-// of the P.V loops.
+// Pieces shared by the attention kernels of skix_torch (the forward core
+// flash_tc.cuh, the backward flash_bwd_common.cuh): dtype conversions, the
+// rounding helpers that repeat the TPU kernels' casts, the rope's rotation
+// by code table, and the output-column map and f32 FMA update of the
+// backward's P.V-shaped loops.
 
 #pragma once
 
@@ -47,62 +47,6 @@ __device__ __forceinline__ float rot_at(const T* __restrict__ row, const int* __
     if (c == 0) return 0.f;
     return c > 0 ? to_f32(row[c - 1]) : -to_f32(row[-c - 1]);
   }
-}
-
-// Load rows [row0, row0 + R) of one (S, D) head slice into dst[d * LD + r],
-// transposed and as f32, zero past `rows`, with all NT threads of the block.
-// With rope: x*cos + rot(x)*sin in f32 (rot_at<D, TB>). With `mul_on`: times mul.
-// Either way the result is rounded to T, as the TPU kernels cast roped or
-// scaled tiles back to the input type. The _rn intrinsics keep nvcc from
-// fusing the products into FMAs, so the f32 values equal the plain
-// version's.
-template <typename T, int D, int R, int LD, int NT, bool TB>
-__device__ __forceinline__ void load_rows_t(float* __restrict__ dst, const T* __restrict__ src,
-                                            long long stride_s, int row0, int rows,
-                                            const float* __restrict__ cos,
-                                            const float* __restrict__ sin,
-                                            const int* __restrict__ rot, bool mul_on,
-                                            float mul) {
-  for (int idx = threadIdx.x; idx < R * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    float x = 0.f;
-    if (r < rows) {
-      const T* row = src + (long long)(row0 + r) * stride_s;
-      x = to_f32(row[d]);
-      const bool rounded = cos != nullptr || mul_on;
-      if (cos != nullptr) {
-        const long long t = (long long)(row0 + r) * D + d;
-        x = __fadd_rn(__fmul_rn(x, cos[t]), __fmul_rn(rot_at<D, TB>(row, rot, d), sin[t]));
-      }
-      if (mul_on) x = __fmul_rn(x, mul);
-      if (rounded) x = round_to<T>(x);
-    }
-    dst[d * LD + r] = x;
-  }
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
 }
 
 // The output columns of the P.V loops: the 16 column groups of a row group

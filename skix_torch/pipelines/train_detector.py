@@ -201,6 +201,13 @@ def main(cfg) -> TrainRun:
     from skix_torch.data import CocoDataset, CocoLoader
     from skix_torch.pipelines.videopose3d import save_checkpoint
 
+    from skix_torch.tracking.matcher import refuse_unported
+
+    # what is not ported is refused before any weights or data load
+    lcfg = dict(cfg.get("loss", {}) or {})
+    refuse_unported(bool(lcfg.get("exact_match", False)),
+                    int(lcfg["mask_points"]) if lcfg.get("mask_points")
+                    else None)
     device = resolve_device(cfg.get("device"))
     on_card = device.type == "cuda"
     model = build_detector(cfg, device)

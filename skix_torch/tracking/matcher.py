@@ -131,6 +131,15 @@ def greedy_assign(cost, gt_valid, rounds: int | None = None,
     return assign.reshape(*lead, Q)
 
 
+def refuse_unported(exact: bool, num_sample_points=None) -> None:
+    """Raise ``NotImplementedError`` for the options still to port: exact
+    (auction) matching and the PointRend sampled mask loss."""
+    if exact:
+        raise NotImplementedError(_AUCTION_SLICE)
+    if num_sample_points is not None:
+        raise NotImplementedError(_POINTREND_SLICE)
+
+
 def auction_assign(cost, gt_valid, repeats: int = 1, **kw):
     """skix's exact auction assignment: not ported yet."""
     raise NotImplementedError(_AUCTION_SLICE)
@@ -221,8 +230,7 @@ def detection_loss(pred_boxes, pred_logits, gt_boxes, gt_valid,
     ``pred_boxes (..., Q, 4)``, ``pred_logits (..., Q)``, ``gt_boxes
     (..., G, 4)``, ``gt_valid (..., G)``; each loss is ``(...)``.
     ``repeats > 1`` matches one-to-many (DAC o2m)."""
-    if exact:
-        raise NotImplementedError(_AUCTION_SLICE)
+    refuse_unported(exact)
     scores = torch.sigmoid(pred_logits)
     cost = matching_cost(pred_boxes, scores, gt_boxes)
     assign = greedy_assign(cost, gt_valid, repeats=repeats)
@@ -311,10 +319,7 @@ def sam3_mask_loss(out, gt_boxes, gt_masks, gt_valid, w_ce: float = 1.0,
     logits' ``(Hm, Wm)``."""
     from skix_torch.utils.image import resize
 
-    if exact:
-        raise NotImplementedError(_AUCTION_SLICE)
-    if num_sample_points is not None:
-        raise NotImplementedError(_POINTREND_SLICE)
+    refuse_unported(exact, num_sample_points)
     B, Q, Hm, Wm = out.mask_logits.shape
     gt_masks = gt_masks.to(torch.float32)
     if gt_masks.shape[-2:] != (Hm, Wm):

@@ -334,3 +334,95 @@ def test_cuda_vitdet_sam3_matches_cpu(cuda):
     assert A.LAUNCHES_BY_STYLE["flash_fwd/interleaved"] == \
         before.get("flash_fwd/interleaved", 0) + 1
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_q,Sk,dtype,layout", [
+    ((2, 3, 130, 64), 70, torch.float32, "token_major"),  # ragged q and k tiles
+    ((3, 2, 65, 32), 200, torch.bfloat16, "shared_q"),    # q of batch stride 0
+    ((1, 2, 33, 128), 97, torch.float32, "offset_view"),  # a view 8 B off
+    ((1, 2, 129, 128), 129, torch.bfloat16, "token_major"),
+])
+def test_cuda_tensor_core_layouts_match_plain(cuda, shape_q, Sk, dtype,
+                                              layout):
+    """The wgmma core (K1) on the layouts the paths hand it: q and k tiles
+    cut off mid-tile, token-major (B, S, H, D) views, a q shared by every
+    batch row, and a view whose base is not 16-byte aligned (copied by the
+    wrapper); f32 within 1e-5, bf16 within 4e-3 of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, H, Sq, D = shape_q
+
+    def make(S, rows=B):
+        if layout == "token_major":
+            return torch.randn((rows, S, H, D), generator=g,
+                               device=cuda).to(dtype).transpose(1, 2)
+        if layout == "offset_view":
+            flat = torch.randn(rows * H * S * D + 2, generator=g, device=cuda)
+            return flat[2:].view(rows, H, S, D).to(dtype) if dtype != \
+                torch.float32 else flat[2:].view(rows, H, S, D)
+        return torch.randn((rows, H, S, D), generator=g,
+                           device=cuda).to(dtype)
+
+    q = make(Sq, 1).expand(B, H, Sq, D) if layout == "shared_q" else make(Sq)
+    k, v = make(Sk), make(Sk)
+    with torch.no_grad():
+        out, lse = A._launch("flash_fwd", q, k, v, D ** -0.5, None, None,
+                             None, True)
+        torch.cuda.synchronize()
+        ref, ref_lse = A.attention_reference(q, k, v, D ** -0.5,
+                                             return_lse=True)
+    atol = 1e-5 if dtype == torch.float32 else 4e-3
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,dtype", [
+    ("full", "float32"), ("norope", "float32"), ("fixedmax", "float32"),
+    ("nosoftmax", "float32"), ("scoresonly", "float32"),
+    ("p_bf16", "float32"), ("heads2", "float32"), ("full", "bfloat16"),
+    ("kv_other_major", "bfloat16"), ("heads2", "bfloat16"),
+    ("nosoftmax", "bfloat16"), ("scoresonly", "bfloat16"),
+])
+def test_cuda_window_probe_variants_match_plain(cuda, variant, dtype):
+    """Each of K2's probe variants against its plain version, at two
+    windows of 4 heads (the probes' tolerances, window_probe.tolerance)."""
+    from skix_torch.ops import window_probe as W
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shape = (2, 5, 576, 64)     # an odd head count: heads2's last CTA
+    q, k, v, cos, sin, style = W._inputs(dtype, True, g, shape)
+    with torch.no_grad():
+        got = W.launch(variant, q, k, v, cos, sin, style, 0.125)
+        torch.cuda.synchronize()
+        ref = W.plain(variant, q, k, v, cos, sin, style, 0.125)
+    scale = max(1.0, ref.float().abs().max().item())
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= W.tolerance(variant, dtype) * scale
+
+
+@pytest.mark.cuda
+def test_cuda_f32_lse_at_large_logits_is_no_further_from_float64(cuda):
+    """test_cuda_lse_matches_plain's f32 case (sm_scale 1 on unit-normal
+    inputs: logits near 50) against the same function evaluated in
+    float64 after the plain version's rounding of the scaled q: the
+    split-TF32 kernel is no further from it than the plain f32 version,
+    in o and in the lse. Prints the four distances."""
+    B, H, Sq, D, Sk = 4, 1, 1000, 64, 4100
+    q, k, v = _qkv(cuda, (1, H, Sq, D), (B, H, Sk, D), torch.float32, seed=3)
+    q = q.expand(B, H, Sq, D)
+    with torch.no_grad():
+        out, lse = A.flash_attention_with_lse(q, k, v, sm_scale=1.0)
+        ref, ref_lse = A.attention_reference(q, k, v, 1.0, return_lse=True)
+        qs = (q * float(np.float32(math.log2(math.e)))).double()
+        s = qs @ k.double().transpose(-1, -2)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp2(s - m)
+        l = p.sum(-1, keepdim=True)
+        o64, lse64 = p @ v.double() / l, (m + torch.log2(l))[..., 0]
+    dist = {name: (x.double() - y).abs().max().item() for name, x, y in (
+        ("kernel_o", out, o64), ("plain_o", ref, o64),
+        ("kernel_lse", lse, lse64), ("plain_lse", ref_lse, lse64))}
+    print(dist)
+    assert dist["kernel_o"] <= dist["plain_o"]
+    assert dist["kernel_lse"] <= dist["plain_lse"]

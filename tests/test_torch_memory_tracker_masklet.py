@@ -60,10 +60,18 @@ def _banks(r, gh, gw):
     return mem, valid, ring
 
 
-def test_encode_frame_matches_skix(trackers):
+@pytest.fixture(scope="module")
+def feats(trackers):
+    """skix's encode_frame of the image, jitted once for the file."""
+    m, v, _, img = trackers
+    return jax.jit(lambda v, x: m.apply(v, x, method=m.encode_frame))(
+        v, jnp.asarray(img))
+
+
+def test_encode_frame_matches_skix(trackers, feats):
     """Stride-8 conv trunk: stride-2 SAME convs pad (0, 1) on even sizes."""
     m, v, port, img = trackers
-    want = m.apply(v, jnp.asarray(img), method=m.encode_frame)
+    want = feats
     with torch.no_grad():
         got = port.encode_frame(torch.as_tensor(img))
     assert got.shape == (1, 4, 4, FEATURES)
@@ -71,7 +79,7 @@ def test_encode_frame_matches_skix(trackers):
 
 
 @pytest.mark.parametrize("dense", [True, False])
-def test_attend_decode_matches_skix(trackers, dense):
+def test_attend_decode_matches_skix(trackers, feats, dense):
     """Dense (K1 with lse + the invalid-slot correction) and the slot scan,
     over banks with two, one and no valid slots; skix runs one bank per
     call, the port all three as a batch."""
@@ -80,12 +88,12 @@ def test_attend_decode_matches_skix(trackers, dense):
 
     m, v, port, img = trackers
     r = np.random.default_rng(12)
-    feats = m.apply(v, jnp.asarray(img), method=m.encode_frame)
     mem, valid, ring = _banks(r, 4, 4)
-    want = [m.apply(v, feats, SkixBank(jnp.asarray(mem[i]),
-                                       jnp.asarray(valid[i]),
-                                       jnp.asarray(ring[i])), dense,
-                    method=m.attend_decode) for i in range(3)]
+    attend = jax.jit(lambda v, f, bank: m.apply(v, f, bank, dense,
+                                                method=m.attend_decode))
+    want = [attend(v, feats, SkixBank(jnp.asarray(mem[i]),
+                                      jnp.asarray(valid[i]),
+                                      jnp.asarray(ring[i]))) for i in range(3)]
     with torch.no_grad():
         masks, scores = port.attend_decode(
             torch.as_tensor(np.array(feats)),
@@ -96,13 +104,12 @@ def test_attend_decode_matches_skix(trackers, dense):
         _close(scores[i], want[i][1][0])
 
 
-def test_encode_memory_matches_skix(trackers):
+def test_encode_memory_matches_skix(trackers, feats):
     m, v, port, img = trackers
     r = np.random.default_rng(13)
-    feats = m.apply(v, jnp.asarray(img), method=m.encode_frame)
     logits = (r.normal(size=(3, 4, 4)) * 4).astype(np.float32)
-    want = jax.vmap(lambda lg: m.apply(v, feats[0], lg,
-                                       method=m.encode_memory))(
+    want = jax.jit(jax.vmap(lambda lg: m.apply(v, feats[0], lg,
+                                               method=m.encode_memory)))(
         jnp.asarray(logits))
     with torch.no_grad():
         got = port.encode_memory(torch.as_tensor(np.array(feats)),
@@ -110,23 +117,23 @@ def test_encode_memory_matches_skix(trackers):
     _close(got, want)
 
 
-def test_step_from_feats_matches_skix(trackers):
+def test_step_from_feats_matches_skix(trackers, feats):
     """Attention + decode + a memory write into each object's ring."""
     from skix.tracking.memory_tracker import MemoryBank as SkixBank
     from skix_torch.tracking.memory_tracker import MemoryBank
 
     m, v, port, img = trackers
-    feats = m.apply(v, jnp.asarray(img), method=m.encode_frame)
     mem, valid, ring = _banks(np.random.default_rng(15), 4, 4)
+    step = jax.jit(lambda v, f, bank: m.apply(v, f, bank, True, True,
+                                              method=m.step_from_feats))
     with torch.no_grad():
         _, _, bank = port.step_from_feats(
             torch.as_tensor(np.array(feats)),
             MemoryBank(torch.as_tensor(mem), torch.as_tensor(valid),
                        torch.as_tensor(ring)), dense=True)
     for i in range(3):
-        _, _, want = m.apply(v, feats, SkixBank(
-            jnp.asarray(mem[i]), jnp.asarray(valid[i]), jnp.asarray(ring[i])),
-            True, True, method=m.step_from_feats)
+        _, _, want = step(v, feats, SkixBank(
+            jnp.asarray(mem[i]), jnp.asarray(valid[i]), jnp.asarray(ring[i])))
         _close(bank.mem[i], want.mem)
         np.testing.assert_array_equal(bank.valid[i].numpy(), want.valid)
         assert int(bank.ring_pos[i]) == int(want.ring_pos)

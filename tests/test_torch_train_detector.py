@@ -143,12 +143,19 @@ def step_pair(skix_model, batch):
         optax.cosine_decay_schedule(lr, steps, alpha=0.05),
         weight_decay=wd))
 
-    @jax.jit
-    def update(g, p):
-        upd, _ = tx.update(g, tx.init(p), p)
-        return optax.apply_updates(p, upd)
-
-    new = update(grads, v["params"])
+    # the chain on all leaves as one flat vector: every transform is
+    # elementwise but the global norm, which is the flat vector's norm, so
+    # a few eager ops stand in for compiling the chain over ~800 leaves
+    leaves, treedef = jax.tree_util.tree_flatten(v["params"])
+    flat = [jnp.ravel(x) for x in (jnp.asarray(p) for p in leaves)]
+    fp = jnp.concatenate(flat)
+    fg = jnp.concatenate([jnp.ravel(g) for g in jax.tree_util.tree_leaves(
+        grads)])
+    upd, _ = tx.update(fg, tx.init(fp), fp)
+    fnew = np.asarray(optax.apply_updates(fp, upd))
+    cuts = np.cumsum([x.size for x in flat])[:-1]
+    new = jax.tree_util.tree_unflatten(treedef, [
+        x.reshape(np.shape(p)) for x, p in zip(np.split(fnew, cuts), leaves)])
 
     model = _port_model(v)
     cfg = config_from_mapping({"lr": lr, "weight_decay": wd, "grad_clip": 1.0,
@@ -187,8 +194,8 @@ def test_step_assignments_match_skix(outputs, batch):
         a = greedy_assign(matching_cost(gb, torch.sigmoid(gs),
                                         torch.as_tensor(gt)),
                           torch.as_tensor(valid), repeats=rep)
-        b = jax.vmap(lambda bx, sc, g, gv: skix_greedy(
-            skix_cost(bx, jax.nn.sigmoid(sc), g), gv, repeats=rep))(
+        b = jax.jit(jax.vmap(lambda bx, sc, g, gv: skix_greedy(
+            skix_cost(bx, jax.nn.sigmoid(sc), g), gv, repeats=rep)))(
             wb, ws, jnp.asarray(gt), jnp.asarray(valid))
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
         assert (a >= 0).sum() > 0
@@ -310,9 +317,10 @@ init_checkpoint: {init}
     assert diff.max() <= 2 * steps * lr * 1.01
     assert (diff <= 1e-6).mean() >= 0.99
 
-    # the port's checkpoint through skix's reader, skix's model
+    # the port's checkpoint through skix's reader, skix's model (five
+    # images: the batch the file's jitted forward was compiled for)
     params = skix_load(str(tmp_path / "ckpt_port" / name))["params"]
-    imgs = np.random.default_rng(9).random((2, SIZE, SIZE, 3)).astype(
+    imgs = np.random.default_rng(9).random((5, SIZE, SIZE, 3)).astype(
         np.float32)
     want_out = fwd(params, jnp.asarray(imgs))
     with torch.no_grad():

@@ -2,13 +2,17 @@
 
 Each flax module gets random variables (``_torch_parity``), which
 ``skix_torch.convert`` turns into the torch module's ``state_dict``; both
-see the same numpy inputs. float32 unless a test says otherwise.
+see the same numpy inputs. float32 unless a test says otherwise. skix's
+modules run jitted (XLA compiles each once; op by op they take several
+times as long on the CPU), and the full VGGT's variables are drawn once
+for the file.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from _torch_parity import random_variables
 
@@ -51,7 +55,7 @@ def test_block(qk_norm, fixed_max, rope):
                      rope_freq=100.0 if rope else -1.0, rope_tables=rope,
                      attn_fixed_max=fixed_max)
     v = random_variables(sblk, rng, jnp.asarray(x), jnp.asarray(pos))
-    want = sblk.apply(v, jnp.asarray(x), jnp.asarray(pos))
+    want = jax.jit(sblk.apply)(v, jnp.asarray(x), jnp.asarray(pos))
     blk, extra = _port(Block(EMBED, HEADS, qk_norm=qk_norm, init_values=0.01,
                              attn_fixed_max=fixed_max), v)
     assert extra == []
@@ -92,13 +96,13 @@ def test_aggregator():
     sagg = SkixAggregator(img_size=SIZE, embed_dim=EMBED, depth=2,
                           num_heads=HEADS, output_layers=(0, 1))
     v = random_variables(sagg, rng, jnp.asarray(imgs))
-    want, idx = sagg.apply(v, jnp.asarray(imgs))
+    want, idx = jax.jit(sagg.apply)(v, jnp.asarray(imgs))
     agg, extra = _port(Aggregator(img_size=SIZE, embed_dim=EMBED, depth=2,
                                   num_heads=HEADS, output_layers=(0, 1)), v)
     assert extra == []
     with torch.no_grad():
         got, got_idx = agg(torch.as_tensor(imgs))
-    assert got_idx == idx == 5 and len(got) == len(want) == 2
+    assert got_idx == int(idx) == 5 and len(got) == len(want) == 2
     for g, w in zip(got, want):
         assert g.shape == w.shape == (1, 2, 5 + 4, 2 * EMBED)
         _close(g, w)
@@ -111,7 +115,7 @@ def test_camera_head():
     tok = rng.normal(size=(1, 2, 2 * EMBED)).astype(np.float32)
     shead = SkixCameraHead(dim_in=2 * EMBED, num_heads=HEADS)
     v = random_variables(shead, rng, jnp.asarray(tok))
-    want = shead.apply(v, jnp.asarray(tok))
+    want = jax.jit(shead.apply)(v, jnp.asarray(tok))
     head, _ = _port(CameraHead(dim_in=2 * EMBED, num_heads=HEADS), v)
     with torch.no_grad():
         got = head(torch.as_tensor(tok))
@@ -120,25 +124,37 @@ def test_camera_head():
         _close(g, w)
 
 
+VGGT_KW = dict(img_size=SIZE, embed_dim=EMBED, depth=2, num_heads=HEADS,
+               intermediate_layer_idx=(0, 0, 1, 1))
+
+
+@pytest.fixture(scope="module")
+def vggt_variables():
+    """skix's full VGGT (with the DPT heads, whose leaves go unused) and
+    its random variables, with the images both dtypes see."""
+    from skix.models.vggt import VGGT as SkixVGGT
+
+    imgs = np.random.default_rng(7).random((1, 2, SIZE, SIZE, 3)).astype(
+        np.float32)
+    full = SkixVGGT(**VGGT_KW)
+    return full, random_variables(full, rng, jnp.asarray(imgs)), imgs
+
+
 @pytest.mark.parametrize("dtype,atol", [
     ("float32", 1e-4),
     # bf16 rounds at other places in the two frameworks (dense layers,
     # GELU, the residual stream): a few bf16 steps of the O(1) outputs
     ("bfloat16", 6e-2),
 ])
-def test_vggt_pose_enc(dtype, atol):
-    from skix.models.vggt import VGGT as SkixVGGT
+def test_vggt_pose_enc(vggt_variables, dtype, atol):
     from skix.models.vggt import pose_encoding_to_extri_intri as skix_p2e
     from skix_torch.models.vggt import VGGT, pose_encoding_to_extri_intri
 
-    kw = dict(img_size=SIZE, embed_dim=EMBED, depth=2, num_heads=HEADS,
-              intermediate_layer_idx=(0, 0, 1, 1))
-    imgs = rng.random((1, 2, SIZE, SIZE, 3)).astype(np.float32)
-    full = SkixVGGT(**kw)       # with the DPT heads: their leaves go unused
-    v = random_variables(full, rng, jnp.asarray(imgs))
+    kw = VGGT_KW
+    full, v, imgs = vggt_variables
     smodel = full.clone(enable_depth=False, enable_point=False,
                         dtype=getattr(jnp, dtype))
-    want = smodel.apply(v, jnp.asarray(imgs))
+    want = jax.jit(smodel.apply)(v, jnp.asarray(imgs))
     model, extra = _port(VGGT(**kw, dtype=getattr(torch, dtype)), v)
     assert extra and all(k.split(".")[0] in ("depth_head", "point_head")
                          for k in extra)
