@@ -7,10 +7,12 @@ Phases, one line each (the last line is the JSON verdict):
 1. device     the card's name and power limit (nvidia-smi);
 2. build      every CUDA kernel of the main paths, from skix_torch/ops/csrc,
               one nvcc process per source, all started together; each
-              kernel's registers, spills and shared memory (-Xptxas -v, the
-              forward core's dynamic shared memory from its library) and
-              the count of HGMMA (wgmma) instructions in the SASS of K1 and
-              K2 (cuobjdump -sass), which fails the phase at 0;
+              kernel's registers, spills and shared memory (-Xptxas -v; the
+              dynamic shared memory of the forward and backward cores from
+              their libraries), ptxas's wgmma warnings, and the count of
+              HGMMA (wgmma) instructions in the SASS of K1-K5 (cuobjdump
+              -sass), which fails the phase at 0, as does a spill in a
+              backward kernel;
 3. kernel     each forward kernel against its plain PyTorch version on the
               card at the main paths' shapes, with its time (CUDA events),
               the plain version's, F.scaled_dot_product_attention's on the
@@ -27,9 +29,12 @@ Phases, one line each (the last line is the JSON verdict):
    backward   each backward kernel against its plain version: K3 + K4
               (flash_bwd_dkv, flash_bwd_dq) at the ViT-Det global and
               fusion-encoder training shapes, K5 (flash_bwd_single_tile) at
-              the window shape, ragged and bf16 cases, the same with the
-              interleaved rope and K3/K4 with the segmented rope; the
-              yardstick is autograd through SDPA, its backward alone;
+              the window shape, ragged, bf16 and head-dim-128 cases, the
+              same with the interleaved rope and K3/K4 with the segmented
+              rope, each launched twice, the two results bitwise equal
+              (no atomics); the yardstick is autograd through SDPA,
+              its backward alone; the bound as for the forward (float32
+              as split-TF32, the FMA bound beside it);
    window_probe K2's probes B1-B7 (skix_torch.ops.window_probe): each
               compile-time variant against its plain version on the card,
               then its time, spread and share of the bound;
@@ -98,8 +103,9 @@ HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12,         # dense tensor-core bf16
                   "float32": 67e12}           # f32 outside the tensor cores
 TF32_OPS_PER_S = 495e12                       # dense tensor-core tf32
-# the forward kernels' float32 products: split-TF32, three tf32 products
-# (lo*hi + hi*lo + hi*hi) per f32 product (skix_torch/ops/csrc/flash_tc.cuh)
+# the kernels' float32 products: split-TF32, three tf32 products (lo*hi +
+# hi*lo + hi*hi) per f32 product (skix_torch/ops/csrc/flash_tc.cuh,
+# flash_bwd_tc.cuh)
 F32_TF32_PASSES = 3
 KERNELS = {  # name → (source, the TPU kernel it replaces)
     "flash_fwd": ("skix_torch/ops/csrc/flash_fwd.cu",
@@ -217,9 +223,10 @@ def ptxas_entries(log: str):
 def build_phase(sources):
     """Build every kernel source (one nvcc each, all at once); print each
     kernel's registers, spills and shared memory (``-Xptxas -v``; the
-    forward core's dynamic shared memory from its library) and the number
-    of HGMMA (wgmma) instructions in the SASS of K1 and K2, which must not
-    be 0."""
+    dynamic shared memory of the forward and backward cores from their
+    libraries), ptxas's warnings about wgmma, and the number of HGMMA
+    (wgmma) instructions in the SASS of each source, which must not be 0;
+    a backward kernel must not spill."""
     import ctypes
 
     from skix_torch.ops import _build
@@ -227,19 +234,37 @@ def build_phase(sources):
     t0 = time.perf_counter()
     libs = _build.build(sources)
     say("build", seconds=round(time.perf_counter() - t0, 2))
+    spills = []
     for s in sources:
-        for name, regs, st, ld, smem in ptxas_entries(_build.build_log(s)):
+        log = _build.build_log(s)
+        for name, regs, st, ld, smem in ptxas_entries(log):
             say("build", source=s, kernel=json.dumps(name).replace(" ", ""),
                 registers=regs, spill_stores=st, spill_loads=ld,
                 static_smem=smem)
+            if s.startswith("flash_bwd") and (st or ld):
+                spills.append(name)
+        for ln in log.splitlines():
+            if "wgmma" in ln or "C7515" in ln:
+                say("build", source=s, ptxas_warning=json.dumps(ln.strip()))
     fwd = ctypes.CDLL(str(libs["flash_fwd"]))
     fwd.skix_flash_fwd_smem_bytes.restype = ctypes.c_longlong
-    say("build", forward_dynamic_smem=json.dumps(
-        {f"{dt}/D{D}": fwd.skix_flash_fwd_smem_bytes(D, code)
-         for dt, code in (("float32", 0), ("bfloat16", 1))
-         for D in (32, 64, 128)}).replace(" ", ""))
+    bwd = ctypes.CDLL(str(libs["flash_bwd"]))
+    bwd.skix_flash_bwd_smem_bytes.restype = ctypes.c_longlong
+    k5 = ctypes.CDLL(str(libs["flash_bwd_single_tile"]))
+    k5.skix_bwd_single_tile_smem_bytes.restype = ctypes.c_longlong
+    say("build", dynamic_smem=json.dumps({
+        f"{kern}/{dt}/D{D}": fn(D, code)
+        for kern, fn in (
+            ("fwd", fwd.skix_flash_fwd_smem_bytes),
+            ("dkv", lambda D, c: bwd.skix_flash_bwd_smem_bytes(D, c, 1)),
+            ("dq", lambda D, c: bwd.skix_flash_bwd_smem_bytes(D, c, 0)),
+            ("single_tile", k5.skix_bwd_single_tile_smem_bytes))
+        for dt, code in (("float32", 0), ("bfloat16", 1))
+        for D in (32, 64, 128)}).replace(" ", ""))
+    if spills:
+        fail(f"backward kernels spill registers: {spills}")
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
-    for s in ("flash_fwd", "flash_fwd_single_tile"):
+    for s in sources:
         sass = subprocess.run([str(cuobjdump), "-sass", str(libs[s])],
                               capture_output=True, text=True, timeout=300)
         n = sum("HGMMA" in ln for ln in sass.stdout.splitlines())
@@ -539,10 +564,14 @@ BWD_OPS = {"flash_bwd_dkv": 8.0, "flash_bwd_dq": 6.0,
            "flash_bwd_single_tile": 10.0}
 
 
-def backward_bound_ms(name, q, k):
+def backward_bound_ms(name, q, k, rope: bool):
     """The least time the card needs for one backward kernel: its inputs
     (q, k, v, dO, lse, di; the f32 rope tables) read once and its outputs
-    written once, against its products at the input type's peak rate."""
+    written once, against its products at the rate they run at: bf16 at
+    989 TFLOP/s, float32 as F32_TF32_PASSES tf32 products at 495; the
+    larger of the two. Also the float32 FMA bound (67 TFLOP/s) that a
+    kernel on the FMA units would face: ``(ms, bound_by, fma_ms)``, fma_ms
+    None for bf16."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     item = q.element_size()
@@ -550,10 +579,17 @@ def backward_bound_ms(name, q, k):
             "flash_bwd_single_tile": Sq + 2 * Sk}[name]
     nbytes = (item * B * H * D * (2 * Sq + 2 * Sk + outs)
               + 2 * 4 * B * H * Sq)
+    if rope:
+        nbytes += 2 * 4 * Sq * D
     ops = BWD_OPS[name] * B * H * Sq * Sk * D
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[str(q.dtype).split(".")[-1]] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    f32 = item == 4
+    t_ops = (F32_TF32_PASSES * ops / TF32_OPS_PER_S if f32
+             else ops / PEAK_OPS_PER_S["bfloat16"]) * 1e3
+    fma_ms = (max(t_bytes, ops / PEAK_OPS_PER_S["float32"] * 1e3) if f32
+              else None)
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", fma_ms)
 
 
 def plain_backward(q, k, v, do, lse, di, sm, cos, sin, style="half",
@@ -615,6 +651,11 @@ def check_backward(case, gen):
         torch.cuda.synchronize()
         if any(A.LAUNCHES[n] != before[n] + 1 for n in kernels):
             fail(f"{kernels} {label}: the wrapper did not launch its kernels")
+        # no atomics: a second launch gives the same bits
+        again = A._launch_backward(kernels, q, k, v, do, lse, di, sm, cos,
+                                   sin, style)
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
         big = B * H * Sq * Sk > 2 ** 28
         plain = ((lambda: plain_backward(q, k, v, do, lse, di, sm, cos, sin,
                                          style))
@@ -648,19 +689,23 @@ def check_backward(case, gen):
     del leaves, out
     rows = []
     for n in kernels:
-        bound, bound_by = backward_bound_ms(n, q, k)
+        bound, bound_by, fma_ms = backward_bound_ms(n, q, k, rope is not None)
         row = {"name": n, "case": label, "shape_q": list(shape), "Sk": Sk,
                "dtype": str(dtype).split(".")[-1], "fixed_max": fixed_max,
                "rope": style_label(rope), "max_abs_err": max(errs.values()),
                "errs": errs, "grad_scale": scales, "tol": tol, "ms": ms[n],
                "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": bound, "bound_by": bound_by}
+               "bound_ms": bound, "bound_by": bound_by,
+               "fma_bound_ms": fma_ms, "bound_share": bound / ms[n],
+               "deterministic": deterministic}
         say("backward", **{k_: (json.dumps(v_).replace(" ", "")
                                 if isinstance(v_, dict) else v_)
                            for k_, v_ in row.items()})
         rows.append(row)
     if not finite:
         fail(f"{kernels} {label}: non-finite gradients")
+    if not deterministic:
+        fail(f"{kernels} {label}: two launches gave different gradients")
     bad = [n for n in errs if not errs[n] <= tol * max(scales[n], 1e-30)]
     if bad:
         fail(f"{kernels} {label}: {bad} off by {errs} (scales {scales}, "
@@ -688,6 +733,10 @@ def backward_cases():
          1e-5),
         ("flash_fwd", "ragged_cross_d128", (1, 2, 77, 128), 130, f32, None,
          None, 1e-5),
+        ("flash_fwd", "ragged_d128_bf16", (1, 2, 300, 128), 300, bf, None,
+         "half", 2e-2),
+        ("flash_fwd_single_tile", "window_d128", (2, 2, 128, 128), 128, f32,
+         None, None, 1e-5),
         ("flash_fwd_single_tile", "ragged", (2, 2, 77, 32), 77, f32, 8.0,
          "half", 1e-5),
         ("flash_fwd", "vggt_frame_bf16", (2, 16, 1374, 64), 1374, bf, 12.0,
@@ -1484,7 +1533,8 @@ def train_reference_phase(tmp: Path, sam3: bool = False):
     rope = "interleaved" if sam3 else "half"
     want = (want, {f"{k}/{rope}": v for k, v in want.items()})
     say(phase, loss_cpu=l_c, loss_card=l_g, loss_rel=loss_rel,
-        grad_norm=norm, grad_err_over_limit=g_err, param_err=p_err,
+        grad_norm=norm, grad_err_over_limit=g_err,
+        worst_leaf_share_of_limit=f"{worst[0]}:{g_err}", param_err=p_err,
         param_floor=floor, params_compared=f"{compared}/{total}",
         grad_leaves_compared=f"{len(ratio)}/{len(g_c)}",
         skipped=json.dumps({
@@ -1800,7 +1850,8 @@ def main() -> int:
             "checks": [{k: r.get(k) for k in (
                 "case", "shape_q", "Sk", "dtype", "rope", "max_abs_err",
                 "errs", "grad_scale", "lse_max_abs_err", "tol", "ms",
-                "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "fma_bound_ms")}
                 for r in mine]})
     kernels += probe_entries(probe_rows)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,7 +20,10 @@ CUDA C++ kernels, built for ``sm_90a`` at first use
   tile, two launches;
 - K5 (``_bwd_kernel_single_tile``, ``:691``) →
   ``skix_torch/ops/csrc/flash_bwd_single_tile.cu``: dQ, dK and dV of a
-  one-tile sequence in one launch.
+  one-tile sequence in one launch; K3, K4 and K5 share one tensor-core
+  core, ``csrc/flash_bwd_tc.cuh`` (a dK/dV role and a dQ role, wgmma
+  products with p and dS fed from registers, float32 as split-TF32),
+  after the same rope pass as the forward.
 
 :func:`flash_attention` is the public entry, a ``torch.autograd.Function``
 (the counterpart of skix's custom VJP ``_flash_attention``, ``:958-1029``).
@@ -472,7 +475,7 @@ def _check_args(q, k, v, rope_cos, rope_sin, rope_rotate="half"):
 
 def _aligned16(x: torch.Tensor) -> torch.Tensor:
     """``x`` with a 16-byte-aligned base and (b, h, s) strides, as the
-    forward kernels' 16-byte loads and cp.async need: a copy only where a
+    kernels' 16-byte loads and cp.async need: a copy only where a
     view is misaligned (a stride 0 is aligned). The rope tables, contiguous
     (S, D) rows of D ≥ 32 floats, need an aligned base only."""
     item = x.element_size()
@@ -563,8 +566,10 @@ def _launch_backward(kernels, q, k, v, do, lse, di, sm_scale, rope_cos,
     """Launch the backward kernels named in ``kernels`` (``flash_bwd_dkv``
     and ``flash_bwd_dq``, K3 and K4, one after the other; or
     ``flash_bwd_single_tile``, K5) on q's stream; returns ``(dq, dk, dv)``.
-    ``lse`` and ``di`` are (B, H, Sq) f32. Raises on anything the kernels
-    do not take and on a failed launch."""
+    ``lse`` and ``di`` are (B, H, Sq) f32. With rope, the forward's rope
+    pass first ropes and rounds q and k once for the call; the kernels
+    un-rotate dq and dk at their store. Raises on anything the kernels do
+    not take and on a failed launch."""
     q, k, v, rope_cos, rope_sin, rot = _check_args(q, k, v, rope_cos,
                                                    rope_sin, rope_rotate)
     B, H, Sq, D = q.shape
@@ -580,6 +585,12 @@ def _launch_backward(kernels, q, k, v, do, lse, di, sm_scale, rope_cos,
     if lse.shape != (B, H, Sq) or di.shape != (B, H, Sq):
         raise ValueError(f"lse and di must be ({B}, {H}, {Sq})")
     dq, dk, dv = _empty_like_heads(q), _empty_like_heads(k), _empty_like_heads(v)
+    q, k, v, do = (_aligned16(t) for t in (q, k, v, do))
+    if rope_cos is not None:
+        rope_cos, rope_sin = (t if t.data_ptr() % 16 == 0 else t.clone()
+                              for t in (rope_cos, rope_sin))
+        q = _rope_pass(q, rope_cos, rope_sin, rot, None)
+        k = _rope_pass(k, rope_cos, rope_sin, rot, None)
     strides = (ctypes.c_longlong * 21)(*(
         s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]))
     stream = torch.cuda.current_stream(q.device).cuda_stream

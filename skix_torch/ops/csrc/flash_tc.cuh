@@ -1,6 +1,8 @@
-// The tensor-core pieces of the attention forward (flash_fwd.cu,
-// flash_fwd_single_tile.cu): shared-memory matrix descriptors, the wgmma
-// instructions K1 and K2 issue, TF32 rounding and the hi/lo split, cp.async.
+// The tensor-core pieces of the attention kernels: shared-memory matrix
+// descriptors, the wgmma instructions, TF32 rounding and the hi/lo split,
+// cp.async, and the forward core of K1 (flash_fwd.cu) and K2
+// (flash_fwd_single_tile.cu). The backward core (flash_bwd_tc.cuh) builds
+// on the same pieces.
 //
 // Operand layout. Every operand a wgmma reads from shared memory is stored
 // K-major without swizzle: "core matrices" of 8 rows x 16 bytes (4 f32 or
@@ -99,10 +101,10 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 }
 
 // wgmma m64nNk8 (tf32) and m64nNk16 (bf16), f32 accumulators d, at the
-// widths the core uses (S: N = 32 or 64 keys, bf16 64; P.V: N = D); ss: A
-// and B from shared memory by descriptor; rs: A from registers (the
-// fragment of the accumulator layout). acc 0 overwrites d, 1 adds to it.
-// TB 1: B is MN-major (bf16 only).
+// widths the cores use (S: N = 32 or 64 rows; P.V and the gradients:
+// N = D); ss: A and B from shared memory by descriptor; rs: A from
+// registers (the fragment of the accumulator layout). acc 0 overwrites d,
+// 1 adds to it. TB 1: B is MN-major (bf16 only).
 __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
   asm volatile("{\n.reg .pred p;\n"
       "setp.ne.b32 p, %18, 0;\n"
@@ -120,6 +122,16 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16], const uint32_t (&a
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile("{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc), "n"(TB));
 }
 template <int TB>
 __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int acc) {

@@ -1,6 +1,7 @@
 """Time K1–K5 at the main paths' shapes (the memory tracker's K1-lse, the
-interleaved, rotate-half and rope-free rows), in the ``skix_torch`` of any
-checkout, to compare two commits on one card.
+interleaved, rotate-half and rope-free rows of the forward and the
+backward), in the ``skix_torch`` of any checkout, to compare two commits
+on one card.
 
     python3 skix_torch/ops/time_kernels.py --tree DIR --out FILE [--reps N]
     python3 skix_torch/ops/time_kernels.py --compare A1 B1 B2 A2
@@ -56,6 +57,14 @@ CASES = (
     ("k4_vitdet_global_h", (4, 16, 5184, 64), 5184, "f32", None, "half",
      "dq"),
     ("k5_windows_h", (36, 16, 576, 64), 576, "f32", None, "half",
+     "bwd_single"),
+    ("k3_fusion", (4, 8, 5184, 32), 5184, "f32", None, None, "dkv"),
+    ("k4_fusion", (4, 8, 5184, 32), 5184, "f32", None, None, "dq"),
+    ("k3_vitdet_global_i", (4, 16, 5184, 64), 5184, "f32", None,
+     "interleaved", "dkv"),
+    ("k4_vitdet_global_i", (4, 16, 5184, 64), 5184, "f32", None,
+     "interleaved", "dq"),
+    ("k5_windows_i", (36, 16, 576, 64), 576, "f32", None, "interleaved",
      "bwd_single"),
 )
 

@@ -129,6 +129,7 @@ def _backward_case(cuda, shape_q, Sk, dtype, rope, fixed_max, single):
     ((2, 3, 1000, 64), 1000, torch.float32, True, None),   # ragged
     ((1, 2, 77, 128), 130, torch.float32, False, None),    # cross, D = 128
     ((2, 4, 1374, 64), 1374, torch.bfloat16, True, 12.0),  # VGGT frame
+    ((1, 2, 300, 128), 300, torch.bfloat16, True, None),   # D = 128 bf16
 ])
 def test_cuda_backward_matches_plain(cuda, shape_q, Sk, dtype, rope,
                                      fixed_max):
@@ -150,6 +151,7 @@ def test_cuda_backward_matches_plain(cuda, shape_q, Sk, dtype, rope,
     ((2, 2, 77, 32), torch.float32, True, 8.0),      # ragged
     ((2, 4, 576, 64), torch.bfloat16, True, None),
     ((3, 2, 16, 32), torch.float32, True, None),     # the tiny detector
+    ((2, 2, 128, 128), torch.bfloat16, True, None),  # D = 128 bf16
 ])
 def test_cuda_single_tile_backward_matches_plain(cuda, shape_q, dtype, rope,
                                                  fixed_max):
@@ -160,6 +162,32 @@ def test_cuda_single_tile_backward_matches_plain(cuda, shape_q, dtype, rope,
     for a, b in zip(got, ref):
         torch.testing.assert_close(a.float(), b.float(), rtol=0,
                                    atol=tol * b.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,single", [
+    ((9, 16, 576, 64), True),     # ViT-Det windows: K5
+    ((2, 4, 5184, 64), False),    # ViT-Det global blocks: K3 + K4
+])
+def test_cuda_backward_is_deterministic(cuda, shape, single):
+    """The backward kernels use no atomics (each gradient element is
+    written once, by one CTA): two launches on the same inputs give
+    bitwise equal dq, dk and dv."""
+    q, k, v = _qkv(cuda, shape, shape, torch.float32, seed=11)
+    do = _qkv(cuda, shape, shape, torch.float32, seed=12)[0]
+    pos = torch.as_tensor(np.resize(_positions(133), (shape[2], 2)),
+                          device=cuda)
+    cos, sin = A.rope_2d_tables(pos, shape[3], 100.0)
+    sm = 1 / math.sqrt(shape[3])
+    fwd = "flash_fwd_single_tile" if single else "flash_fwd"
+    with torch.no_grad():
+        o, lse = A._launch(fwd, q, k, v, sm, None, cos, sin, True)
+        di = (o * do).sum(-1)
+        runs = [A._launch_backward(A._BACKWARD_OF[fwd], q, k, v, do, lse, di,
+                                   sm, cos, sin) for _ in range(2)]
+        torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def _qkv(cuda, shape_q, shape_k, dtype, seed=0):
