@@ -61,6 +61,19 @@ Phases, one line each (the last line is the JSON verdict):
               converters (sam3_checkpoints); then front_sam3 at full size
               through run_all, launches counted by kernel and rope style,
               warm and profiled;
+7c. chain    run_all's default chain (videopose3d → triangulation →
+              bundle_adjustment → fuse → front_side → angle → metrics):
+              chain_ref at skix's run_all-test size on the card and on the
+              CPU from the same records and lifter weights (per kind of
+              artifact the largest difference against its limit, the RANSAC
+              inlier masks, the committed lifter fixture's held-out MPJPE);
+              then chain at configs/run_all.yaml's full width (VideoPose3D
+              channels 1024, widths 3x5, kpt RANSAC, LM BA) on 4 persons x
+              2 views x 900 frames of 1080p, every person's every artifact
+              checked, cold (launch counts reset just before and read just
+              after: no flash-attention kernel is on this path), warm,
+              profiled, and the lifter, the RANSAC and the adaptive EMA
+              timed alone;
 8. train_ref  one train_detector step of the tiny detector on the card and
               on the CPU from the same weights and batch: loss, gradients
               and updated parameters;
@@ -99,6 +112,7 @@ import tempfile
 import time
 from pathlib import Path
 
+ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12,         # dense tensor-core bf16
                   "float32": 67e12}           # f32 outside the tensor cores
@@ -160,6 +174,17 @@ TRAIN_SAM3_PER_STEP = {"flash_fwd_single_tile_lse/interleaved": 28,
                        "flash_bwd_dq/interleaved": 4, "flash_bwd_dq/none": 6}
 TRAIN_SAM3_PER_EVAL = {"flash_fwd_single_tile/interleaved": 28,
                        "flash_fwd/interleaved": 4, "flash_fwd/none": 6}
+# run_all's default chain (configs/run_all.yaml) plus front_side: the full
+# width and data of the chain phase, and the small size of chain_ref (skix's
+# run_all test: T 24, lifter channels 32, widths [3, 3], BA 8 × 10 CG)
+CHAIN_STAGES = ["videopose3d", "triangulation", "bundle_adjustment", "fuse",
+                "front_side", "angle", "metrics"]
+CHAIN_PERSONS, CHAIN_T, CHAIN_HW = 4, 900, (1080, 1920)   # 30 s at 30 fps
+CHAIN_FULL = dict(filter_widths=[3, 3, 3, 3, 3], channels=1024,
+                  ba_max_steps=30, ba_cg_iters=20)
+CHAIN_REF_T = 24
+CHAIN_REF = dict(filter_widths=[3, 3], channels=32, ba_max_steps=8,
+                 ba_cg_iters=10)
 SEGMENT_AXES = (8, 12, 8)      # the segmented rope's case: a tail of 4 of 32
 # train_ref, train_sam3_ref: a gradient leaf that moves on the CPU by more
 # than this share of its largest element when the batch is reversed is
@@ -1396,6 +1421,488 @@ def write_sam3_checkpoints(tmp: Path):
 
 
 # --------------------------------------------------------------------------
+# phase 7c: run_all's default chain, card against CPU, then at full width
+# --------------------------------------------------------------------------
+def chain_rig():
+    """K (the stage's default DJI Osmo intrinsics), and view B's R, t: turned
+    0.35 rad about y, 6.1 m from view A (the two-view geometry of skix's
+    triangulation CLI test)."""
+    import numpy as np
+    import torch
+
+    from skix_torch.geometry.rotations import rotvec_to_matrix
+    from skix_torch.pipelines.triangulation import default_K
+
+    R = rotvec_to_matrix(torch.tensor([0.03, 0.35, 0.01],
+                                      dtype=torch.float64)).numpy()
+    return default_K(), R, np.array([-6.0, 0.2, 1.0])
+
+
+def write_chain_inputs(root: Path, persons: int, T: int, seed: int):
+    """For each person ``pNN``: two pt records (1920×1080, 30 fps) with the
+    COCO-17 keypoints of a skier coming down the slope from 20 to 8 m in
+    front of the rig (0.5 px noise); the two MHR-70 side views of a moving pose, the
+    right one in a rigidly misaligned frame (20 mm noise), as skix's
+    run_all test writes them; the front SAM3 person track. Returns per
+    person the skeleton in view A's frame and the side views' truth."""
+    import numpy as np
+
+    from skix_torch.io.contracts import PTInfo, save_pt_info
+
+    rng = np.random.default_rng(seed)
+    K, R, t = chain_rig()
+    # COCO-17 skeleton (metres, y down): face, shoulders, elbows, wrists,
+    # hips, knees, ankles
+    base = np.array([[0, -1.6, 0], [-0.04, -1.64, -0.03], [0.04, -1.64, -0.03],
+                     [-0.08, -1.62, 0.02], [0.08, -1.62, 0.02],
+                     [-0.2, -1.4, 0], [0.2, -1.4, 0], [-0.3, -1.1, 0.05],
+                     [0.3, -1.1, 0.05], [-0.35, -0.85, 0.1],
+                     [0.35, -0.85, 0.1], [-0.12, -0.9, 0], [0.12, -0.9, 0],
+                     [-0.14, -0.48, 0.08], [0.14, -0.48, 0.08],
+                     [-0.14, -0.05, 0], [0.14, -0.05, 0]])
+    s = np.linspace(0.0, 1.0, T)[:, None, None]
+    sec = np.arange(T)[:, None, None] / 30.0
+    truth = {}
+    for p in range(persons):
+        name = f"p{p + 1:02d}"
+        phase = rng.uniform(0, 2 * np.pi)
+        # a turn every 5 s
+        sway = 0.15 * np.sin(2 * np.pi * 0.2 * sec + phase
+                             + np.arange(17)[:, None] / 3)
+        # down the slope toward the rig: from 20 m up to the left to 8 m
+        # down to the right, so the pooled correspondences span the image
+        X = (base[None] + sway * np.array([1.0, 0.3, 1.0])
+             + s * np.array([10.0, 3.5, -12.0]) + np.array([-5.0, -1.0, 20.0]))
+        uv = []
+        for Rm, tv in ((np.eye(3), np.zeros(3)), (R, t)):
+            Xc = X @ Rm.T + tv
+            px = Xc[..., :2] / Xc[..., 2:] * K[[0, 1], [0, 1]] + K[:2, 2]
+            uv.append(px + rng.normal(size=px.shape) * 0.5)
+        for view, px in zip(("osmo_1", "osmo_2"), uv):
+            score = np.ones((T, 17), np.float32)
+            save_pt_info(root / "pt" / name / f"{view}.npz", PTInfo(
+                video_name=view, frame_count=T, img_shape=CHAIN_HW, fps=30.0,
+                duration=T / 30.0,
+                d2_keypoints=np.concatenate([px.astype(np.float32),
+                                             score[..., None]], -1),
+                d2_keypoints_score=score))
+        gt = (rng.normal(size=(1, 70, 3)) * 0.3
+              + rng.normal(size=(T, 70, 3)).cumsum(0) * 0.01)
+        ang = 0.3
+        R_mis = np.array([[np.cos(ang), -np.sin(ang), 0],
+                          [np.sin(ang), np.cos(ang), 0], [0, 0, 1.0]])
+        side = root / "sam3d" / name
+        side.mkdir(parents=True)
+        np.save(side / "left_view.npy",
+                (gt + rng.normal(size=gt.shape) * 0.02).astype(np.float32))
+        np.save(side / "right_view.npy",
+                (gt @ R_mis.T + np.array([0.5, -0.2, 1.0])
+                 + rng.normal(size=gt.shape) * 0.02).astype(np.float32))
+        front = root / "front" / name
+        front.mkdir(parents=True)
+        xs = np.linspace(300, 900, T)
+        np.save(front / "person_bboxes.npy", np.stack(
+            [xs, np.full(T, 400.0), xs + 80, np.full(T, 700.0)],
+            -1).astype(np.float32))
+        truth[name] = (X, gt)
+    return truth
+
+
+def chain_cfg(root: Path, work: Path, device: str, **size):
+    """run_all over ``root``'s inputs: the default stages and front_side,
+    ``configs/run_all.yaml``'s settings but for ``size`` and the rig's
+    baseline; no lifter checkpoint unless ``size`` names one."""
+    import numpy as np
+
+    return {"paths": {"pt_root": str(root / "pt"), "work_root": str(work),
+                      "video_root": None, "sam3d_root": str(root / "sam3d"),
+                      "front_root": str(root / "front")},
+            "stages": CHAIN_STAGES, "lifter_checkpoint": None,
+            "kpt_source": "detectron2", "tri_methods": ["kpt"],
+            "baseline_m": float(np.linalg.norm(chain_rig()[2])),
+            "single_view": False, "plots": False, "render_video": False,
+            "gt_root": None, "ba_mode": "pose_only", "ba_method": "lm",
+            "device": device, **size}
+
+
+def check_chain_outputs(phase: str, work: Path, truth: dict, T: int):
+    """Every person wrote every artifact of every stage, finite and of the
+    expected shape (the stages log a person's exception and go on, so the
+    files are the proof); the BA did not raise its cost; the fused MPJPE
+    against the side views' truth is below 50 mm. Returns the accuracy by
+    person (with the triangulated and refined joints' distance from the
+    skeleton)."""
+    import numpy as np
+
+    want = {"videopose3d": ["osmo_1_left.npy", "osmo_2_right.npy",
+                            "{p}_fused.npz", "{p}_metrics.json"],
+            "joints_3d": ["joints_3d_kpt.json", "joints_3d_kpt_smoothed.npy",
+                          "ba_input_kpt.npz", "{p}_poses.npz",
+                          "{p}_poses.csv"],
+            "ba": ["ba_input_kpt_refined.npz", "ba_input_kpt_ba_report.json"],
+            "fused": ["{p}_fused.npy", "{p}_smoothed.npy"],
+            "front_side": ["{p}_bev.mp4", "{p}_world.npy", "{p}_feet_bev.npy"],
+            "angle": ["angles.csv", "turns.csv", "changes.json",
+                      "before_after_comparison.json",
+                      "turn_comparison.json"]}
+    summaries = {"videopose3d/summary.json", "fused/fuse_summary.json",
+                 "front_side/front_side_summary.json",
+                 "angle/angle_summary.json", "metrics/metrics_report.json"}
+    missing = [f"{stage}/{p}/{f.format(p=p)}" for p in truth
+               for stage, files in want.items() for f in files
+               if not (work / stage / p / f.format(p=p)).exists()]
+    missing += [s for s in sorted(summaries) if not (work / s).exists()]
+    if missing:
+        fail(f"{phase}: artifacts missing (a stage logged and skipped a "
+             f"person): {missing[:8]}")
+    for s in summaries:
+        doc = json.loads((work / s).read_text())
+        if sorted(doc) != sorted(truth):
+            fail(f"{phase}: {s} covers {sorted(doc)}, not {sorted(truth)}")
+    acc = {}
+    for p, (X, gt) in truth.items():
+        shapes = {f"videopose3d/{p}/osmo_1_left.npy": (T, 17, 3),
+                  f"joints_3d/{p}/joints_3d_kpt_smoothed.npy": (T, 17, 3),
+                  f"fused/{p}/{p}_fused.npy": (T, 70, 3),
+                  f"fused/{p}/{p}_smoothed.npy": (T, 70, 3),
+                  f"front_side/{p}/{p}_world.npy": (T, 70, 3)}
+        for rel, shape in shapes.items():
+            a = np.load(work / rel)
+            if a.shape != shape or not np.isfinite(a).all():
+                fail(f"{phase}: {rel} is {a.shape}, finite "
+                     f"{bool(np.isfinite(a).all())}; want finite {shape}")
+        with np.load(work / "ba" / p / "ba_input_kpt_refined.npz") as z:
+            X_ba = z["X3d"]
+        rep = json.loads((work / "ba" / p / "ba_input_kpt_ba_report.json"
+                          ).read_text())
+        if not (np.isfinite(X_ba).all() and rep["final_cost"]
+                <= rep["initial_cost"]):
+            fail(f"{phase}: {p}'s bundle adjustment: {rep}")
+        fused = np.load(work / "fused" / p / f"{p}_fused.npy")
+        tri = np.load(work / "joints_3d" / p / "joints_3d_kpt_smoothed.npy")
+        acc[p] = {"fused_mpjpe_m": float(np.linalg.norm(fused - gt,
+                                                        axis=-1).mean()),
+                  "ba_joint_err_m": float(np.linalg.norm(X_ba - X,
+                                                         axis=-1).mean()),
+                  "smoothed_joint_err_m": float(np.linalg.norm(tri - X,
+                                                               axis=-1).mean())}
+        if not acc[p]["fused_mpjpe_m"] < 0.050:
+            fail(f"{phase}: {p}'s fused MPJPE {acc[p]['fused_mpjpe_m']} m")
+    # the triangulated joints' distance from the skeleton is reported, not
+    # held: the kpt route's pooled pose is skix's unnormalized 8-point
+    # RANSAC, which on a skier ~130-300 px tall misses the rig (0.29-2.0
+    # rad off on these records, in skix as in the port; ROADMAP Queue 3)
+    return acc
+
+
+def _compare_trees(cpu: Path, card: Path, limits: dict, skip: tuple):
+    """The largest |card − CPU| / max(1, |CPU|) of each artifact's numbers
+    (arrays, JSON, CSV cells; equality for the rest), by the limit's kind
+    (``limits``: file name → kind); files in ``skip`` only have to exist."""
+    import csv
+
+    import numpy as np
+
+    def numbers(path):
+        if path.suffix == ".npy":
+            return {"": np.load(path)}
+        if path.suffix == ".npz":
+            with np.load(path) as z:
+                return {k: z[k] for k in z.files}
+        if path.suffix == ".json":
+            flat = {}
+
+            def walk(prefix, node):
+                if isinstance(node, dict):
+                    for k, v in node.items():
+                        walk(f"{prefix}/{k}", v)
+                elif isinstance(node, list):
+                    for i, v in enumerate(node):
+                        walk(f"{prefix}[{i}]", v)
+                else:
+                    flat[prefix] = node
+            walk("", json.loads(path.read_text()))
+            return flat
+        rows = list(csv.reader(open(path)))
+        return {f"{i}": np.array([float(c) if c else np.nan for c in r])
+                for i, r in enumerate(rows[1:])} | {"header": rows[0]}
+
+    worst, bad, by_file = {}, [], {}
+    files = sorted(p.relative_to(cpu) for p in cpu.rglob("*") if p.is_file())
+    for rel in files:
+        b = card / rel
+        if not b.exists():
+            bad.append(f"{rel}: missing on the card")
+            continue
+        if rel.name in skip or rel.suffix == ".mp4":
+            continue
+        kind = limits.get(rel.name, "joints_m")
+        na, nb = numbers(cpu / rel), numbers(b)
+        if set(na) != set(nb):
+            bad.append(f"{rel}: keys {sorted(set(na) ^ set(nb))[:4]}")
+            continue
+        for k, va in na.items():
+            vb = nb[k]
+            if isinstance(va, str):       # a path names its own work dir
+                va, vb = va.replace(str(cpu), ""), vb.replace(str(card), "")
+            if kind == "equal" or isinstance(va, (str, bool, list)) or (
+                    isinstance(va, np.ndarray) and va.dtype.kind not in "fc"):
+                if not np.array_equal(np.asarray(va), np.asarray(vb)):
+                    bad.append(f"{rel}{k}: not equal")
+                continue
+            va, vb = np.asarray(va, np.float64), np.asarray(vb, np.float64)
+            if va.shape != vb.shape or not np.array_equal(np.isnan(va),
+                                                          np.isnan(vb)):
+                bad.append(f"{rel}{k}: shape or missing values differ")
+                continue
+            ok = ~np.isnan(va)
+            d = (np.abs(va - vb)[ok] / np.maximum(1.0, np.abs(va[ok]))
+                 ).max(initial=0.0)
+            by_file[f"{rel}{k}"] = float(d)
+            if d > worst.get(kind, (-1.0, ""))[0]:
+                worst[kind] = (float(d), f"{rel}{k}")
+    top = sorted(by_file.items(), key=lambda kv: -kv[1])[:8]
+    return worst, bad, top
+
+
+def chain_reference_phase(tmp: Path, device: str = "cuda"):
+    """run_all's chain at skix's run_all-test size (T 24, lifter channels
+    32 and widths [3, 3], BA 8 steps × 10 CG) on the card and on the CPU,
+    from the same records and the same lifter weights (an npz written
+    once): per kind of artifact, the largest difference against its limit.
+    Then the committed tests/fixtures/lifter_tiny.npz on the card against
+    the CPU on scripts/make_lifter_fixture.py's held-out clips."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from skix_torch.convert import state_dict_to_flax
+    from skix_torch.models.videopose3d import TemporalLifter, infer_sequence
+    from skix_torch.pipelines.run_all import main as run_all
+    from skix_torch.pipelines.videopose3d import (build_lifter, init_lifter,
+                                                  save_checkpoint)
+
+    root = tmp / "chain_ref"
+    truth = write_chain_inputs(root, 1, CHAIN_REF_T, seed=21)
+    ckpt = root / "lifter.npz"
+    save_checkpoint(ckpt, state_dict_to_flax(init_lifter(TemporalLifter(
+        filter_widths=CHAIN_REF["filter_widths"],
+        channels=CHAIN_REF["channels"])).state_dict()))
+    for side in ("cpu", device):
+        run_all(chain_cfg(root, root / side, side, lifter_checkpoint=str(ckpt),
+                          **CHAIN_REF))
+    check_chain_outputs("chain_ref", root / device, truth, CHAIN_REF_T)
+    # limits on |card − CPU| / max(1, |CPU|) by kind: 3D joints in metres
+    # (and every other number) 1e-4, angles in degrees 1e-3; the turn
+    # segments and the RANSAC's per-frame inlier counts equal
+    tol = {"joints_m": 1e-4, "angles_deg": 1e-3, "equal": 0.0}
+    limits = {"angles.csv": "angles_deg", "changes.json": "angles_deg",
+              "before_after_comparison.json": "angles_deg",
+              "turn_comparison.json": "angles_deg", "turns.csv": "equal"}
+    worst, bad, top = _compare_trees(root / "cpu", root / device, limits,
+                                skip=("pipeline_timing.json",
+                                      "ba_input_kpt_ba_report.json",
+                                      "ba_summary.json", "p01_poses.csv"))
+    reps = [json.loads((root / s / "ba" / "p01" / "ba_input_kpt_ba_report.json"
+                        ).read_text()) for s in ("cpu", device)]
+    for k in reps[0]:
+        if k != "solve_ms":
+            d = abs(reps[0][k] - reps[1][k]) / max(1.0, abs(reps[0][k]))
+            if d > worst.get("joints_m", (-1.0, ""))[0]:
+                worst["joints_m"] = (d, f"ba_report/{k}")
+    inl = [np.loadtxt(root / s / "joints_3d" / "p01" / "p01_poses.csv",
+                      delimiter=",", skiprows=1, usecols=5)
+           for s in ("cpu", device)]
+    if not np.array_equal(*inl):
+        bad.append("p01_poses.csv: per-frame inlier counts differ")
+    # the RANSAC's inlier masks themselves, on the chain's records
+    from skix_torch.geometry.epipolar import estimate_relative_pose
+    from skix_torch.pipelines.videopose3d import load_2d_keypoints
+
+    recs = sorted((root / "pt" / "p01").glob("*.npz"))
+    ka, _, _ = load_2d_keypoints(str(recs[0]))
+    kb, _, _ = load_2d_keypoints(str(recs[1]))
+    K = torch.tensor(chain_rig()[0], dtype=torch.float32)
+    masks = [estimate_relative_pose(
+        torch.tensor(ka, device=d), torch.tensor(kb, device=d), K.to(d),
+        generator=torch.Generator().manual_seed(0)).inliers.cpu()
+        for d in ("cpu", device)]
+    if not torch.equal(*masks):
+        bad.append("RANSAC inlier masks differ")
+
+    # the committed lifter fixture on the card against the CPU
+    spec = importlib.util.spec_from_file_location(
+        "make_lifter_fixture", ROOT / "scripts" / "make_lifter_fixture.py")
+    fixture = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixture)
+    from skix_torch.geometry.camera import normalize_screen_coordinates
+
+    cfg = {"checkpoint": str(ROOT / "tests" / "fixtures" / "lifter_tiny.npz"),
+           "filter_widths": [3, 3, 3], "channels": 128}
+    mpjpe = {}
+    for d in ("cpu", device):
+        model = build_lifter(cfg, torch.device(d))
+        errs = []
+        for seed in (1000, 1001, 1002):
+            x3, px = fixture.synth_clip(seed=seed, T=120)
+            pred = infer_sequence(model, normalize_screen_coordinates(
+                torch.tensor(px, device=d), fixture.W, fixture.H))
+            errs.append(float(torch.linalg.norm(
+                pred.cpu() - torch.tensor(x3), dim=-1).mean()))
+        mpjpe[d] = float(np.mean(errs))
+    say("chain_ref", **{f"max_{k}": v[0] for k, v in worst.items()},
+        worst_at=json.dumps({k: v[1] for k, v in worst.items()}
+                            ).replace(" ", ""),
+        largest=json.dumps([[k, float(f"{v:.3g}")] for k, v in top]
+                           ).replace(" ", ""),
+        tol=json.dumps(tol).replace(" ", ""), ransac_masks_equal=not any(
+            "RANSAC" in b for b in bad),
+        lifter_tiny_mpjpe_m=mpjpe[device], lifter_tiny_mpjpe_cpu_m=mpjpe["cpu"])
+    bad += [f"{k}: {v[0]} at {v[1]} > {tol[k]}" for k, v in worst.items()
+            if v[0] > tol[k]]
+    if abs(mpjpe[device] - mpjpe["cpu"]) > 1e-5 or not mpjpe[device] < 0.050:
+        bad.append(f"lifter_tiny MPJPE {mpjpe}")
+    if bad:
+        fail(f"chain_ref: card and CPU disagree: {bad[:8]}")
+
+
+def chain_phase(tmp: Path, device: str = "cuda", persons=None, T=None,
+                **size):
+    """run_all's default chain plus front_side at configs/run_all.yaml's
+    full width (lifter channels 1024, widths 3×5, flip on; kpt RANSAC 256
+    hypotheses a frame; BA pose_only, LM 30 × 20 CG) on 4 persons × 2 views
+    × 900 frames at 1080p: cold (launch counts reset just before, read just
+    after), warm, then the lifter's forward, the kpt route's RANSAC and the
+    adaptive EMA's loop timed alone, and once more for one person under
+    torch.profiler."""
+    import numpy as np
+    import torch
+
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines.run_all import main as run_all
+
+    persons = persons or CHAIN_PERSONS
+    T = T or CHAIN_T
+    size = size or CHAIN_FULL
+    on_card = device == "cuda"
+    root = tmp / "chain"
+    t0 = time.perf_counter()
+    truth = write_chain_inputs(root, persons, T, seed=31)
+    setup_s = time.perf_counter() - t0
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    run_all(chain_cfg(root, root / "cold", device, **size))
+    sync()
+    cold_s = time.perf_counter() - t0
+    launches, by_style = dict(A.LAUNCHES), dict(A.LAUNCHES_BY_STYLE)
+    peak = (round(torch.cuda.max_memory_allocated() / 2 ** 30, 3)
+            if on_card else "not measured")
+    acc = check_chain_outputs("chain", root / "cold", truth, T)
+    timing = json.loads((root / "cold" / "pipeline_timing.json").read_text())
+    say("chain", persons=persons, frames=T, cold_wall_s=round(cold_s, 3),
+        inputs_setup_s=round(setup_s, 3),
+        **{f"{k}_s": v["total_s"] for k, v in timing.items()},
+        peak_mem_gib=peak, launches=json.dumps(launches).replace(" ", ""),
+        accuracy=json.dumps({p: {k: round(v, 5) for k, v in a.items()}
+                             for p, a in acc.items()}).replace(" ", ""))
+    if any(launches.values()):
+        fail(f"chain: flash-attention kernels launched on a path that runs "
+             f"none: {launches}")
+
+    t0 = time.perf_counter()
+    run_all(chain_cfg(root, root / "warm", device, **size))
+    sync()
+    warm_s = time.perf_counter() - t0
+    timing = json.loads((root / "warm" / "pipeline_timing.json").read_text())
+    ba = {p: json.loads((root / "warm" / "ba" / p /
+                         "ba_input_kpt_ba_report.json").read_text())
+          for p in truth}
+    say("chain_warm", wall_s=round(warm_s, 3),
+        **{f"{k}_s": v["total_s"] for k, v in timing.items()},
+        ba_solve_ms=json.dumps({p: r["solve_ms"] for p, r in ba.items()}
+                               ).replace(" ", ""),
+        ba_iterations=json.dumps({p: r["iterations"] for p, r in ba.items()}
+                                 ).replace(" ", ""))
+
+    # the pieces alone, warm, on the chain's own inputs
+    from skix_torch.geometry.smoothing import adaptive_ema
+    from skix_torch.pipelines.triangulation import (default_K,
+                                                    estimate_poses_kpt)
+    from skix_torch.pipelines.videopose3d import (build_lifter, lift_clip,
+                                                  load_2d_keypoints)
+
+    recs = sorted((root / "pt" / "p01").glob("*.npz"))
+    ka, sa, (H, W) = load_2d_keypoints(str(recs[0]))
+    kb, sb, _ = load_2d_keypoints(str(recs[1]))
+    model = build_lifter({"filter_widths": size["filter_widths"],
+                          "channels": size["channels"]}, torch.device(device))
+    x = torch.tensor(ka, device=device)
+
+    def timed(fn, reps):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    lift_ms = timed(lambda: lift_clip(x, (W, H), model), 5)
+    kpt_ms = timed(lambda: estimate_poses_kpt(ka, kb, sa, sb, default_K(),
+                                              6.0, device=device), 3)
+    fused = torch.tensor(np.load(root / "warm" / "fused" / "p01" /
+                                 "p01_fused.npy"), device=device)
+    ema_ms = timed(lambda: adaptive_ema(fused), 3)
+    say("chain_pieces", lifter_forward_ms_per_clip=round(lift_ms, 3),
+        lifter_frames=T, kpt_ransac_ms_per_frame=round(kpt_ms / T, 4),
+        kpt_ransac_ms_per_clip=round(kpt_ms, 3),
+        adaptive_ema_ms_per_clip=round(ema_ms, 3),
+        adaptive_ema_us_per_frame=round(ema_ms / T * 1e3, 2))
+    del model
+    if not on_card:
+        return launches, by_style
+
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    # the profiled run: one person (p01) of the four, device activity only
+    # (the profiler's own processing of the four persons' ~480,000 kernels
+    # and their host events took ~4 minutes)
+    one = root / "one"
+    for part in ("pt", "sam3d", "front"):
+        shutil.copytree(root / part / "p01", one / part / "p01")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_all(chain_cfg(one, one / "prof", device, **size))
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    say("chain_profile", persons=1, wall_ms=round(prof_wall_ms, 1),
+        device_busy_ms=round(busy_ms, 2),
+        device_idle_share=round(1.0 - busy_ms / prof_wall_ms, 4),
+        kernels_launched=sum(e.count for e in kernels))
+    say("chain_profile_top", kernels=json.dumps(
+        [[e.key[:60], round(e.self_device_time_total / 1e3, 2), e.count]
+         for e in top]).replace(" ", ""))
+    return launches, by_style
+
+
+# --------------------------------------------------------------------------
 # phase 8: one training step of the tiny detector, card against CPU
 # --------------------------------------------------------------------------
 def write_coco(root: Path, n: int, hw, seed: int) -> Path:
@@ -1796,6 +2303,12 @@ def main() -> int:
                                               FRONT_SAM3_PER_FRAME)
         front_profile_phase(tmp, frames, "front_sam3", sam3)
         clip_ckpt.unlink()
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 7c. run_all's default chain: small, card against CPU; then at the
+        # full width, warm, profiled, and its pieces timed alone
+        chain_reference_phase(tmp)
+        paths["chain"] = chain_phase(tmp)
         gc.collect()
         torch.cuda.empty_cache()
         # 8. one training step, tiny, card against CPU

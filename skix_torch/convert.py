@@ -13,6 +13,12 @@ per leaf, not a name table:
   (kh, kw, 1, C) so becomes torch's (C, 1, kh, kw)); a ConvTranspose
   kernel takes the same rule, and the port's ``ConvTranspose`` applies it
   flipped in space, as flax does not flip it;
+- a 1-D Conv ``kernel`` (W, I, O) becomes ``weight`` (O, I, W): a 3-D
+  kernel is a 1-D Conv unless its module is one of the DenseGenerals
+  ``query``, ``key``, ``value``, ``out``;
+- a BatchNorm's ``batch_stats`` ``mean`` and ``var`` become the
+  ``running_mean`` and ``running_var`` buffers of the same module (its
+  ``params`` ``scale``/``bias`` take the LayerNorm rule);
 - a LayerNorm or GroupNorm ``scale`` becomes ``weight``; ``bias`` stays
   ``bias``;
 - an Embed's ``embedding`` (vocab, width) becomes the ``weight`` of an
@@ -22,7 +28,8 @@ per leaf, not a name table:
   ``init_boxes``, ``label_embed``, ``null_prompt``,
   ``positional_embedding``, ``text_projection``) is copied as it is.
 
-The tree comes as nested dicts of arrays (``{"params": {...}}`` or the
+The tree comes as nested dicts of arrays (``{"params": {...}}``, with
+``"batch_stats"`` beside it where the model has BatchNorm, or the
 ``params`` subtree itself) or as the flat ``"params/a/b/kernel"`` npz that
 ``skix.pipelines.videopose3d.save_checkpoint`` writes. Reading an npz needs
 numpy only, so a machine without JAX loads a skix checkpoint.
@@ -33,8 +40,11 @@ of each torch leaf. A 2-D ``weight`` is a Dense kernel (transposed back),
 except under a module whose name ends in ``embedding`` (an Embed's table);
 a 4-D ``weight`` a Conv or ConvTranspose kernel (OIHW back to HWIO; the
 port stores a ConvTranspose kernel unflipped and flips it where it applies
-it, so no flip is undone here); a 1-D ``weight`` a LayerNorm or GroupNorm
-``scale``; every other leaf is copied. DenseGeneral's 3-D kernels and 2-D
+it, so no flip is undone here); a 3-D ``weight`` a 1-D Conv kernel; a 1-D
+``weight`` a LayerNorm, GroupNorm or BatchNorm ``scale``; ``running_mean``
+and ``running_var`` go to ``batch_stats`` as ``mean`` and ``var``
+(``num_batches_tracked`` has no flax counterpart and is dropped); every
+other leaf is copied. DenseGeneral's 3-D kernels and 2-D
 biases take their shapes from a template of the flax tree.
 """
 
@@ -65,6 +75,10 @@ def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndar
     return flat
 
 
+_DENSE_GENERAL = ("query", "key", "value", "out")
+_BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
 def _torch_leaf(name: str, arr: np.ndarray, module: str = ""
                 ) -> tuple[str, np.ndarray]:
     if name == "kernel":
@@ -73,7 +87,9 @@ def _torch_leaf(name: str, arr: np.ndarray, module: str = ""
         if arr.ndim == 3:
             if module == "out":
                 return "weight", arr.reshape(-1, arr.shape[-1]).T
-            return "weight", arr.reshape(arr.shape[0], -1).T
+            if module in _DENSE_GENERAL:
+                return "weight", arr.reshape(arr.shape[0], -1).T
+            return "weight", arr.transpose(2, 1, 0)
         if arr.ndim == 4:
             return "weight", arr.transpose(3, 2, 0, 1)
         raise ValueError(f"kernel of rank {arr.ndim} has no rule")
@@ -95,10 +111,14 @@ def flax_to_state_dict(variables: Mapping[str, Any] | str | Path
     sd: dict[str, torch.Tensor] = {}
     for key, arr in flat.items():
         parts = key.split("/")
-        if parts[0] == "params":
-            parts = parts[1:]
-        leaf, value = _torch_leaf(parts[-1], np.asarray(arr, np.float32),
-                                  parts[-2] if len(parts) > 1 else "")
+        if parts[0] == "batch_stats":
+            parts = parts[1:-1] + [_BATCH_STATS[parts[-1]]]
+            leaf, value = parts[-1], np.asarray(arr, np.float32)
+        else:
+            if parts[0] == "params":
+                parts = parts[1:]
+            leaf, value = _torch_leaf(parts[-1], np.asarray(arr, np.float32),
+                                      parts[-2] if len(parts) > 1 else "")
         sd[".".join(parts[:-1] + [leaf])] = torch.tensor(value)
     return sd
 
@@ -107,10 +127,13 @@ def load_into(module: torch.nn.Module, state_dict: Mapping[str, torch.Tensor]
               ) -> list[str]:
     """Copy ``state_dict`` into ``module`` (each tensor cast to its
     parameter's dtype and device). Every parameter of the module must be
-    present; keys the module does not have are returned, as flax ``apply``
-    ignores them (e.g. the DPT heads of a full VGGT checkpoint)."""
+    present (a BatchNorm's ``num_batches_tracked`` counter aside, which
+    flax does not keep); keys the module does not have are returned, as
+    flax ``apply`` ignores them (e.g. the DPT heads of a full VGGT
+    checkpoint)."""
     missing, unexpected = module.load_state_dict(dict(state_dict),
                                                  strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
     if missing:
         raise KeyError(f"checkpoint lacks {len(missing)} parameters, "
                        f"e.g. {missing[:5]}")
@@ -128,6 +151,8 @@ def flax_leaf(name: str, arr: np.ndarray, module: str = ""
             return "kernel", arr.T
         if arr.ndim == 4:
             return "kernel", arr.transpose(2, 3, 1, 0)
+        if arr.ndim == 3:
+            return "kernel", arr.transpose(2, 1, 0)
         if arr.ndim == 1:
             return "scale", arr
         raise ValueError(f"weight of rank {arr.ndim} has no rule")
@@ -150,7 +175,8 @@ def state_dict_to_flax(state_dict: Mapping[str, Any],
                        ) -> dict[str, Any]:
     """Convert a port ``state_dict`` (or any mapping of its keys to tensors,
     such as the gradients of its parameters) into skix's variables tree
-    ``{"params": {...}}`` of float32 numpy arrays: the inverse of
+    ``{"params": {...}}`` (and ``"batch_stats"`` where it has BatchNorm
+    statistics) of float32 numpy arrays: the inverse of
     :func:`flax_to_state_dict`. ``template`` (a flax tree, nested or flat
     ``"a/b/kernel"`` keys, with or without the ``params`` level) gives the
     shapes of DenseGeneral leaves; a leaf whose element count matches is
@@ -161,11 +187,21 @@ def state_dict_to_flax(state_dict: Mapping[str, Any],
         shapes = {k[len("params/"):] if k.startswith("params/") else k:
                   np.shape(v) for k, v in flat.items()}
     params: dict[str, Any] = {}
+    stats: dict[str, Any] = {}
+    stat_names = {v: k for k, v in _BATCH_STATS.items()}
     for key, value in state_dict.items():
+        parts = key.split(".")
+        if parts[-1] == "num_batches_tracked":
+            continue
         arr = (value.detach().to("cpu", torch.float32).numpy()
                if isinstance(value, torch.Tensor)
                else np.asarray(value, np.float32))
-        parts = key.split(".")
+        if parts[-1] in stat_names:
+            node = stats
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[stat_names[parts[-1]]] = np.array(arr, np.float32)
+            continue
         leaf, arr = flax_leaf(parts[-1], arr,
                               parts[-2] if len(parts) > 1 else "")
         path = parts[:-1] + [leaf]
@@ -179,4 +215,4 @@ def state_dict_to_flax(state_dict: Mapping[str, Any],
         for part in path[:-1]:
             node = node.setdefault(part, {})
         node[path[-1]] = np.array(arr, np.float32, order="C")  # a copy
-    return {"params": params}
+    return {"params": params, **({"batch_stats": stats} if stats else {})}

@@ -1,7 +1,6 @@
 """Rotation representations: quaternions (w, x, y, z) and rotation vectors.
 
-Port of ``skix/geometry/rotations.py`` (the functions the VGGT stage and
-bundle adjustment need). Batched over leading axes and safe under
+Port of ``skix/geometry/rotations.py``. Batched over leading axes and safe under
 ``torch.func`` transforms: the exp and log maps keep their Taylor guards
 at θ → 0, so Jacobian products through the LM solver stay finite.
 """
@@ -11,6 +10,32 @@ from __future__ import annotations
 import torch
 
 _EPS = 1e-8
+
+
+def qrot(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors ``v (..., 3)`` by quaternions ``q (..., 4)``."""
+    qvec = q[..., 1:]
+    uv = torch.linalg.cross(qvec, v)
+    uuv = torch.linalg.cross(qvec, uv)
+    return v + 2.0 * (q[..., :1] * uv + uuv)
+
+
+def qinverse(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate of a unit quaternion."""
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                            device=q.device)
+
+
+def qmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product ``a ⊗ b`` of ``(..., 4)`` quaternions."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
 
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
@@ -97,3 +122,19 @@ def matrix_to_rotvec(R: torch.Tensor) -> torch.Tensor:
     small = n < 1e-6
     scale = torch.where(small, 2.0, theta / torch.where(small, 1.0, n))
     return xyz * scale[..., None]
+
+
+def rot6d_to_matrix(x: torch.Tensor) -> torch.Tensor:
+    """Continuous 6D representation ``(..., 6)`` → rotation matrix
+    ``(..., 3, 3)`` by Gram–Schmidt (the two vectors are its columns)."""
+    a1, a2 = x[..., :3], x[..., 3:]
+    b1 = a1 / (torch.linalg.norm(a1, dim=-1, keepdim=True) + _EPS)
+    a2p = a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1
+    b2 = a2p / (torch.linalg.norm(a2p, dim=-1, keepdim=True) + _EPS)
+    b3 = torch.linalg.cross(b1, b2)
+    return torch.stack([b1, b2, b3], dim=-1)
+
+
+def matrix_to_rot6d(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix → 6D: its first two columns, concatenated."""
+    return torch.cat([R[..., :, 0], R[..., :, 1]], dim=-1)

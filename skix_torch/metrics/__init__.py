@@ -1,1 +1,2 @@
-"""Evaluation metrics (numpy copies of skix's)."""
+"""Evaluation metrics: pose errors and sequence reports (torch), detection
+evaluation (a numpy copy of skix's)."""

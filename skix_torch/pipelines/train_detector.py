@@ -46,7 +46,8 @@ log = logging.getLogger(__name__)
 
 def build_detector(cfg, device=None):
     """The configured ``Sam3Detector`` (``preset`` full or tiny, ``model``
-    overrides) on ``device``, uninitialised. It has the ``null_prompt``
+    overrides) on ``device`` (default: :func:`resolve_device`'s, the card),
+    uninitialised. It has the ``null_prompt``
     token: skix's stage initialises and trains the detector without a text
     prompt."""
     from skix_torch.tracking.sam3_detector import Sam3Detector
@@ -57,7 +58,7 @@ def build_detector(cfg, device=None):
     ctor = Sam3Detector.full_size if preset == "full" else Sam3Detector.tiny
     with torch.device("meta"):
         model = ctor(null_prompt=True, **kw)
-    return model.to_empty(device=device or "cpu")
+    return model.to_empty(device=resolve_device(device))
 
 
 def evaluate_train_ap(model, loader, max_batches: int = 8,

@@ -1,7 +1,9 @@
-"""Multi-view bundle adjustment: the reference's five losses + the LM solver.
+"""Multi-view bundle adjustment: the reference's five losses + LM and Adam.
 
-Port of ``skix/solvers/ba.py`` with ``method="lm"`` (the Adam method comes
-with the training slice). The same five terms (confidence-weighted
+Port of ``skix/solvers/ba.py``: ``method="lm"`` (matrix-free
+Levenberg–Marquardt, ``skix_torch.solvers.lm``) or ``method="adam"``
+(optax's Adam, written out, over ½‖r‖² for ``adam_iters`` steps). The same
+five terms (confidence-weighted
 reprojection, camera-center temporal smoothness, baseline regularizer,
 12-bone length consistency, pose temporal smoothness), the same modes
 (``pose_only`` = joints, ``pose_cam_t`` = joints + translations, ``full`` =
@@ -60,9 +62,11 @@ class BAConfig:
     w_bone: float = 0.1
     w_temporal: float = 0.1
     mode: str = "full"            # pose_only | pose_cam_t | full
-    method: str = "lm"            # lm (adam comes with the training slice)
+    method: str = "lm"            # lm | adam
     max_steps: int = 50           # LM outer steps
     cg_iters: int = 30
+    adam_iters: int = 2000
+    adam_lr: float = 1e-2         # reference's intended lr
     bones: tuple = COCO_BONES_12
 
 
@@ -147,6 +151,32 @@ def _residual_blocks(X, rvec, tvec, K, x2d, conf2d, cfg: BAConfig,
     return torch.cat(parts)
 
 
+def _adam_run(residual_fn, iters: int, lr: float, flat0: torch.Tensor,
+              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """``iters`` Adam steps (optax's ``adam``: bias-corrected moments, eps
+    outside the square root) on ``½‖residual_fn(x)‖²`` from ``flat0``.
+    Returns ``(x, loss at flat0, loss at x)``."""
+    def loss_fn(x):
+        r = residual_fn(x)
+        return 0.5 * torch.dot(r, r)
+
+    grad_and_loss = torch.func.grad_and_value(loss_fn)
+    x = flat0.detach()
+    mu = torch.zeros_like(x)
+    nu = torch.zeros_like(x)
+    first = None
+    for step in range(1, iters + 1):
+        g, loss = grad_and_loss(x)
+        if first is None:
+            first = loss
+        mu = b1 * mu + (1.0 - b1) * g
+        nu = b2 * nu + (1.0 - b2) * g * g
+        mu_hat = mu / (1.0 - b1 ** step)
+        nu_hat = nu / (1.0 - b2 ** step)
+        x = x - lr * mu_hat / (torch.sqrt(nu_hat) + eps)
+    return x, first if first is not None else loss_fn(x), loss_fn(x)
+
+
 class BAResult(NamedTuple):
     X: torch.Tensor            # (T, J, 3) refined joints
     R: torch.Tensor            # (C, 3, 3) or (T, C, 3, 3)
@@ -169,10 +199,8 @@ def bundle_adjust(X_init, R_init, t_init, K, x2d, conf2d=None,
     cfg = cfg or BAConfig()
     if cfg.mode not in ("pose_only", "pose_cam_t", "full"):
         raise ValueError(f"unknown BA mode {cfg.mode!r}")
-    if cfg.method != "lm":
-        raise NotImplementedError(
-            f"BA method {cfg.method!r}: the Adam method comes with the "
-            "training slice of the port")
+    if cfg.method not in ("lm", "adam"):
+        raise ValueError(f"unknown BA method {cfg.method!r}")
     if conf2d is None:
         conf2d = torch.ones(x2d.shape[:-1], dtype=x2d.dtype, device=x2d.device)
     rvec_init = matrix_to_rotvec(R_init)
@@ -197,11 +225,18 @@ def bundle_adjust(X_init, R_init, t_init, K, x2d, conf2d=None,
         return _residual_blocks(p["X"], p["rvec"], p["tvec"], K, x2d,
                                 conf2d, cfg, ref_bone_len)
 
-    res = levenberg_marquardt(residual_fn, flat0, max_steps=cfg.max_steps,
-                              cg_iters=cfg.cg_iters)
-    p = unravel(res.x)
+    if cfg.method == "lm":
+        res = levenberg_marquardt(residual_fn, flat0, max_steps=cfg.max_steps,
+                                  cg_iters=cfg.cg_iters)
+        flat, init_cost, final_cost, iters = (res.x, res.initial_cost,
+                                              res.cost, res.iterations)
+    else:
+        flat, init_cost, final_cost = _adam_run(residual_fn, cfg.adam_iters,
+                                                cfg.adam_lr, flat0)
+        iters = cfg.adam_iters
+    p = unravel(flat)
     terms = ba_loss_terms(p["X"], p["rvec"], p["tvec"], K, x2d, conf2d, cfg,
                           ref_bone_len)
     return BAResult(X=p["X"], R=rotvec_to_matrix(p["rvec"]), t=p["tvec"],
-                    initial_cost=res.initial_cost, final_cost=res.cost,
-                    iterations=res.iterations, losses=terms)
+                    initial_cost=init_cost, final_cost=final_cost,
+                    iterations=iters, losses=terms)

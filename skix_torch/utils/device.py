@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the card's numerics
+where they need care (cuDNN's TF32, cuSOLVER's batch limit)."""
 
 from __future__ import annotations
 
@@ -15,3 +16,23 @@ def resolve_device(name: str | None = None) -> torch.device:
             "CUDA was requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def full_float32_convs():
+    """A context in which cuDNN's float32 convolutions run in float32
+    (PyTorch lets them use TF32 by default, ~1e-3 relative); cuDNN's other
+    flags stay as they are, and so does the global setting outside it."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+def by_chunks(fn, M: torch.Tensor, chunk: int = 16384):
+    """``fn`` (a batched factorization returning a tuple, such as
+    ``torch.linalg.eigh``) over ``M (..., n, n)`` in slices of at most
+    ``chunk`` matrices: cuSOLVER's batched eigensolver refuses a batch of
+    900 frames × 256 hypotheses (CUSOLVER_STATUS_INVALID_VALUE)."""
+    flat = M.reshape(-1, *M.shape[-2:])
+    parts = [fn(flat[i:i + chunk]) for i in range(0, max(len(flat), 1), chunk)]
+    return tuple(torch.cat(outs).reshape(*M.shape[:-2], *outs[0].shape[1:])
+                 for outs in zip(*parts))

@@ -27,3 +27,87 @@ def random_variables(module, rng, *inputs, **init_kw):
 
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
+
+
+def _close(a, b, atol, where):
+    """``a`` and ``b`` (JSON values, CSV cells, arrays) agree: numbers within
+    ``atol`` (NaN equal to NaN, as a missing value), everything else equal."""
+    if isinstance(a, dict):
+        assert set(a) == set(b), (where, sorted(a), sorted(b))
+        for k in a:
+            _close(a[k], b[k], atol, f"{where}/{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), (where, len(a), len(b))
+        for i, (x, y) in enumerate(zip(a, b)):
+            _close(x, y, atol, f"{where}[{i}]")
+    elif isinstance(a, np.ndarray) and a.dtype.kind not in "fc":
+        np.testing.assert_array_equal(a, b, err_msg=where)
+    elif isinstance(a, (float, int, np.ndarray)) and not isinstance(a, bool):
+        np.testing.assert_allclose(np.asarray(a, np.float64),
+                                   np.asarray(b, np.float64), atol=atol,
+                                   rtol=0, equal_nan=True, err_msg=where)
+    else:
+        assert a == b, (where, a, b)
+
+
+def _cell(s):
+    try:
+        return float(s) if s != "" else float("nan")
+    except ValueError:
+        return s
+
+
+def assert_same_outputs(want_dir, got_dir, atol=1e-4, limits=None,
+                        ignore=()):
+    """Every file skix wrote under ``want_dir`` exists under ``got_dir`` (and
+    no other), with the same content: arrays (``.npy``, each array of an
+    ``.npz``), JSON documents (the same keys) and CSV tables agree within
+    ``atol``, or ``limits[<file name>]``; a file whose name is in ``ignore``
+    (timings, videos) only has to exist."""
+    import csv
+    import json
+    from pathlib import Path
+
+    limits = limits or {}
+    want_dir, got_dir = Path(want_dir), Path(got_dir)
+    want = sorted(p.relative_to(want_dir) for p in want_dir.rglob("*")
+                  if p.is_file())
+    got = sorted(p.relative_to(got_dir) for p in got_dir.rglob("*")
+                 if p.is_file())
+    assert [str(p) for p in got] == [str(p) for p in want]
+    for rel in want:
+        a, b = want_dir / rel, got_dir / rel
+        tol = limits.get(rel.name, atol)
+        if rel.name in ignore or rel.suffix in (".mp4", ".png"):
+            continue
+        if rel.suffix == ".npy":
+            _close(np.load(a), np.load(b), tol, str(rel))
+        elif rel.suffix == ".npz":
+            with np.load(a) as za, np.load(b) as zb:
+                _close({k: za[k] for k in za.files},
+                       {k: zb[k] for k in zb.files}, tol, str(rel))
+        elif rel.suffix == ".json":
+            _close(json.loads(a.read_text()), json.loads(b.read_text()), tol,
+                   str(rel))
+        elif rel.suffix == ".csv":
+            rows = [[[_cell(c) for c in r] for r in csv.reader(open(p))]
+                    for p in (a, b)]
+            _close(rows[0], rows[1], tol, str(rel))
+        else:
+            assert a.read_bytes() == b.read_bytes(), rel
+
+
+def run_stage_twins(tmp_path, name, body, skix_main, port_main):
+    """A stage's YAML config (``body`` with ``{out}`` for ``out_root``) run
+    by skix into ``skix/`` and by the port (``device: cpu``) into
+    ``port/``; returns the two output roots."""
+    outs = {}
+    for side, fn in (("skix", skix_main), ("port", port_main)):
+        out = tmp_path / side
+        cdir = tmp_path / f"cfg_{side}" / "configs"
+        cdir.mkdir(parents=True, exist_ok=True)
+        (cdir / f"{name}.yaml").write_text(body.format(out=out)
+                                           + "device: cpu\n")
+        fn([f"--config-dir={cdir}"])
+        outs[side] = out
+    return outs["skix"], outs["port"]

@@ -454,3 +454,53 @@ def test_cuda_f32_lse_at_large_logits_is_no_further_from_float64(cuda):
     print(dist)
     assert dist["kernel_o"] <= dist["plain_o"]
     assert dist["kernel_lse"] <= dist["plain_lse"]
+
+
+@pytest.mark.cuda
+def test_cuda_lifter_matches_cpu(cuda):
+    """The temporal lifter at the published width (channels 1024, widths
+    3×5, 243 frames) on the card, cuDNN's TF32 off inside its forward,
+    against the CPU on the same seeded weights and input: float32 sums in
+    another order only."""
+    from skix_torch.models.videopose3d import TemporalLifter, infer_sequence
+    from skix_torch.pipelines.videopose3d import init_lifter
+
+    model = init_lifter(TemporalLifter(channels=1024)).eval()
+    x = torch.randn(300, 17, 2, generator=torch.Generator().manual_seed(0))
+    want = infer_sequence(model, x)
+    got = infer_sequence(model.to(cuda), x.to(cuda)).cpu()
+    assert torch.backends.cudnn.allow_tf32    # the global flag is untouched
+    assert got.shape == (300, 17, 3)
+    err = (got - want).abs().max().item()
+    assert err < 1e-4, err
+
+
+@pytest.mark.cuda
+def test_cuda_batched_ransac_matches_cpu(cuda):
+    """The kpt route's batched RANSAC on the card against the CPU with the
+    same draws (ransac_samples draws on the CPU): 900 frames × 256
+    hypotheses, the same inliers, R and t within 1e-4."""
+    from skix_torch.geometry.epipolar import estimate_relative_pose
+
+    g = np.random.default_rng(3)
+    T, N = 900, 17
+    K = torch.tensor([[1116.93, 0.0, 955.77], [0.0, 1117.33, 538.91],
+                      [0.0, 0.0, 1.0]])
+    z = g.uniform(6.0, 16.0, size=(T, N, 1))
+    X = np.concatenate([g.uniform(-0.8, 0.8, size=(T, N, 2)) * z, z], -1)
+    c, s = np.cos(0.35), np.sin(0.35)
+    R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    Xb = X @ R.T + np.array([-6.0, 0.2, 1.0])
+    kn = K.numpy().astype(np.float64)
+    a = (X[..., :2] / X[..., 2:] * kn[[0, 1], [0, 1]] + kn[:2, 2]
+         + g.normal(size=(T, N, 2)) * 0.2).astype(np.float32)
+    b = (Xb[..., :2] / Xb[..., 2:] * kn[[0, 1], [0, 1]] + kn[:2, 2]
+         + g.normal(size=(T, N, 2)) * 0.2).astype(np.float32)
+    outs = [estimate_relative_pose(
+        torch.tensor(a, device=dev), torch.tensor(b, device=dev),
+        K.to(dev), generator=torch.Generator().manual_seed(0))
+        for dev in ("cpu", cuda)]
+    want, got = outs
+    assert torch.equal(got.inliers.cpu(), want.inliers)
+    assert (got.R.cpu() - want.R).abs().max().item() < 1e-4
+    assert (got.t.cpu() - want.t).abs().max().item() < 1e-4

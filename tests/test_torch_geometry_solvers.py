@@ -3,7 +3,6 @@ rotations, DLT triangulation, the BA losses and LM bundle adjustment on
 ``tests/test_ba.py``-style problems."""
 
 import numpy as np
-import pytest
 import torch
 
 import jax.numpy as jnp
@@ -211,8 +210,24 @@ def test_bundle_adjust_full_matches_skix():
         want.X, want.R, want.t, jnp.asarray(Ks))), atol=0.05)
 
 
-def test_bundle_adjust_refuses_adam():
-    R, t, X, obs = _problem(T=2)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        bundle_adjust(_t(X), _t(R), _t(t), _t(K), _t(obs),
-                      cfg=BAConfig(method="adam"))
+def test_bundle_adjust_adam_matches_skix():
+    """``method="adam"`` (optax's Adam, written out) on the same noisy
+    problem: no random draws, so the port follows skix step by step."""
+    R, t, X, obs = _problem(T=4)
+    Xn = X + np.random.default_rng(3).normal(size=X.shape).astype(
+        np.float32) * 0.05
+    kw = dict(mode="pose_cam_t", method="adam", adam_iters=60, adam_lr=1e-2)
+    want = skix_bundle_adjust(Xn, R, t, K, obs, cfg=SkixBAConfig(**kw))
+    got = bundle_adjust(_t(Xn), _t(R), _t(t), _t(K), _t(obs),
+                        cfg=BAConfig(**kw))
+    assert got.iterations == 60
+    np.testing.assert_allclose(float(got.initial_cost),
+                               float(want.initial_cost), rtol=1e-5)
+    np.testing.assert_allclose(float(got.final_cost), float(want.final_cost),
+                               rtol=1e-4)
+    assert float(got.final_cost) < 0.5 * float(got.initial_cost)
+    np.testing.assert_allclose(got.X.numpy(), np.asarray(want.X), atol=1e-4)
+    np.testing.assert_allclose(got.t.numpy(), np.asarray(want.t), atol=1e-4)
+    init = float(want.initial_cost)
+    for k, v in want.losses.items():   # each term within 1e-5 of the cost
+        assert abs(float(got.losses[k]) - float(v)) < 1e-5 * init, k

@@ -355,3 +355,18 @@ def test_port_refuses_what_is_not_ported(coco, tmp_path):
         port_train.main({**base, "loss": {"mask_points": 64}})
     with pytest.raises(NotImplementedError, match="auction"):
         port_train.main({**base, "loss": {"exact_match": True}})
+
+
+def test_build_detector_defaults_to_the_card():
+    """``build_detector`` takes its default device from ``resolve_device``
+    (cuda): on a machine without a card it raises instead of building on
+    the CPU; asked for the CPU, it builds there."""
+    from skix_torch.pipelines.train_detector import build_detector
+
+    model = build_detector({"preset": "tiny"}, "cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    if torch.cuda.is_available():
+        assert next(build_detector({"preset": "tiny"}).parameters()).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_detector({"preset": "tiny"})
