@@ -73,7 +73,23 @@ Phases, one line each (the last line is the JSON verdict):
               checked, cold (launch counts reset just before and read just
               after: no flash-attention kernel is on this path), warm,
               profiled, and the lifter, the RANSAC and the adaptive EMA
-              timed alone;
+              timed alone; chain_ref also runs run_all's side branch
+              (sam3d_body → fuse, paths.sam3d_root unset, stored 1080p
+              frames, a tiny SAM3DBody checkpoint) card against CPU, while
+              the chains keep their pre-written side views;
+7d. side      the side-view stage (prepare_side_results): side_ref tiny on
+              the card and on the CPU from the same checkpoints (vit_hmr
+              with masks, a DINOv3 trunk, full inference; the tiny MoGe's
+              point maps and its focal search on synthetic maps), each
+              output field's largest difference beside its limit; side at
+              the published DINOv3 ViT-H+/16 width at crop 512 with the
+              MoGe-2 ViT-L/14 FOV estimator at its full width, seeded
+              weights, on two 64-frame 1080p records: cold (exactly 128 K1
+              launches a batch and 24 a MoGe batch), warm, each model pass
+              alone, profiled; side_chain: run_all's sam3d_body → fuse →
+              angle → metrics at the stage's defaults (vit_hmr 384 × 8,
+              crop 256) on 1 person × 2 records × 300 frames of 1080p
+              (exactly 32 K1 launches a batch a record);
 8. train_ref  one train_detector step of the tiny detector on the card and
               on the CPU from the same weights and batch: loss, gradients
               and updated parameters;
@@ -185,7 +201,34 @@ CHAIN_FULL = dict(filter_widths=[3, 3, 3, 3, 3], channels=1024,
 CHAIN_REF_T = 24
 CHAIN_REF = dict(filter_widths=[3, 3], channels=32, ba_max_steps=8,
                  ba_cg_iters=10)
+# chain_ref's side branch: run_all's sam3d keys at a tiny
+# width whose 6 heads are 32 wide (the kernels take head dims 32, 64, 128)
+CHAIN_REF_SIDE = dict(sam3d_crop_size=64, sam3d_embed_dim=192, sam3d_depth=1,
+                      sam3d_batch_size=8, sam3d_inference_type="full")
 SEGMENT_AXES = (8, 12, 8)      # the segmented rope's case: a tail of 4 of 32
+# the side-view stage (prepare_side_results) at the published DINOv3
+# SAM-3D-Body width (ViT-H+/16: 1280 wide, 32 deep, 20 heads of 64, SwiGLU)
+# at crop 512 with the MoGe-2 FOV estimator at its full width (the stage's
+# defaults: ViT-L/14, 1024 wide, 24 deep, 16 heads); two 64-frame 1080p
+# records; K1 launches per batch: 4 backbone passes (body, two hand crops,
+# body again with the refined hands) × 32 blocks, and MoGe's 24 blocks per
+# batch of 4 strided frames. side_chain: run_all's default side stage
+# (vit_hmr 384 × 8, 6 heads, crop 256, batch 8, full) on 1 person × 2
+# records × 300 frames of 1080p, through fuse, angle and metrics
+SIDE_T, SIDE_HW = 64, (1080, 1920)
+SIDE_CFG = dict(backbone="dinov3_vith16plus", embed_dim=1280, crop_size=512,
+                batch_size=8, inference_type="full", fov_name="moge2",
+                fov_stride=8)
+SIDE_PER_BATCH, MOGE_PER_BATCH, MOGE_BATCH = 4 * 32, 24, 4
+SIDE_CHAIN_T, SIDE_CHAIN_PER_BATCH = 300, 4 * 8
+SIDE_CHAIN_STAGES = ["sam3d_body", "fuse", "angle", "metrics"]
+# side_ref's limits on |card − CPU| by output field: 3D in metres, 2D in
+# pixels, the model's parameters; the focal relative
+SIDE_REF_LIMITS = {"pred_keypoints_3d": 1e-4, "pred_vertices": 1e-4,
+                   "pred_cam_t": 1e-4, "pred_keypoints_2d": 0.05,
+                   "pred_global_rots": 1e-4, "body_pose_params": 1e-4,
+                   "hand_pose_params": 1e-4, "scale_params": 1e-4,
+                   "shape_params": 1e-4, "focal_length": 1e-4, "bbox": 0.0}
 # train_ref, train_sam3_ref: a gradient leaf that moves on the CPU by more
 # than this share of its largest element when the batch is reversed is
 # rounding noise (its exact gradient is 0), left out of the gradient check
@@ -396,7 +439,9 @@ def rope_tables(style, S: int, D: int, gen):
     or window (S a square) or of the VGGT layout (5 special tokens, then
     the 37 × 37 grid); ``"interleaved"``: the sam3 axial angles of the
     square grid (or of one row of S); ``("segments", axes)``: the 3D rope
-    of random integer (t, y, x) positions."""
+    of random integer (t, y, x) positions; ``"dinov3"``: the DINOv3 trunk's
+    tables, identity rows (cos 1, sin 0) for its 5 prefix tokens, then its
+    axial angles of the square patch grid (style ``("segments", (D,))``)."""
     import torch
 
     from skix_torch.models.layers import make_grid_positions
@@ -406,6 +451,13 @@ def rope_tables(style, S: int, D: int, gen):
     if style is None:
         return None, None
     dev = torch.device("cuda")
+    if style == "dinov3":               # 5 prefix rows, then a square grid
+        from skix_torch.models.dinov3 import (dinov3_rope_periods,
+                                              rope_tables_with_prefix)
+
+        g = math.isqrt(S - 5)
+        return rope_tables_with_prefix(torch.as_tensor(
+            dinov3_rope_periods(D), device=dev), g, g, 5)
     side = math.isqrt(S)
     if style == "half":
         if side * side == S:            # a ViT-Det grid or window
@@ -424,10 +476,16 @@ def rope_tables(style, S: int, D: int, gen):
     return A.rope_3d_tables(pos, D, style[1])
 
 
+def kernel_style(rope, D: int):
+    """The kernels' rope style of a case's ``rope`` (``"dinov3"``: rotate-half
+    over the whole head, one segment)."""
+    return ("segments", (D,)) if rope == "dinov3" else (rope or "half")
+
+
 def style_label(style) -> str:
     from skix_torch.ops import attention as A
 
-    return "none" if style is None else A.style_name(style)
+    return "none" if style is None else A.style_name(kernel_style(style, 0))
 
 
 def check_kernel(case, gen):
@@ -453,7 +511,7 @@ def check_kernel(case, gen):
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     q = q.expand(B, H, Sq, D)
     cos, sin = rope_tables(rope, Sq, D, gen)
-    style = rope or "half"
+    style = kernel_style(rope, D)
     sm = 1.0 if scale else 1.0 / math.sqrt(D)
     kw = dict(sm_scale=sm, fixed_max=fixed_max, rope_cos=cos, rope_sin=sin,
               rope_rotate=style)
@@ -574,6 +632,17 @@ def kernel_cases():
         # tests/test_ops.py:237-261's shape: axes (8, 12, 8), a tail of 4
         ("flash_fwd", "segments", (1, 2, 64, 32), 64, f32, None,
          ("segments", SEGMENT_AXES), 1e-5, False, None),
+        # the side-view path: run_all's vit_hmr backbone (batch 8, 6 heads,
+        # 16² patches), the DINOv3 ViT-H+/16 trunk at crop 512 (32² patches
+        # and 5 prefix tokens, its rope on the patch rows only) and MoGe's
+        # ViT-L/14 on a batch of 4 padded 1080p frames (78 × 138 patches
+        # and 5 prefix tokens)
+        ("flash_fwd", "sam3d_vit_hmr", (8, 6, 256, 64), 256, f32, None, None,
+         1e-5, False, None),
+        ("flash_fwd", "sam3d_dinov3", (8, 20, 1029, 64), 1029, f32, None,
+         "dinov3", 1e-5, False, None),
+        ("flash_fwd", "moge_vitl", (4, 16, 10769, 64), 10769, f32, None, None,
+         1e-5, False, None),
     ]
 
 
@@ -664,7 +733,7 @@ def check_backward(case, gen):
         k = F.layer_norm(k, (D,))
     q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
     cos, sin = rope_tables(rope, Sq, D, gen)
-    style = rope or "half"
+    style = kernel_style(rope, D)
     sm = 1.0 / math.sqrt(D)
     kernels = BWD_OF[fwd]
     with torch.no_grad():
@@ -1438,13 +1507,16 @@ def chain_rig():
     return default_K(), R, np.array([-6.0, 0.2, 1.0])
 
 
-def write_chain_inputs(root: Path, persons: int, T: int, seed: int):
+def write_chain_inputs(root: Path, persons: int, T: int, seed: int,
+                       frames: bool = False):
     """For each person ``pNN``: two pt records (1920×1080, 30 fps) with the
     COCO-17 keypoints of a skier coming down the slope from 20 to 8 m in
     front of the rig (0.5 px noise); the two MHR-70 side views of a moving pose, the
     right one in a rigidly misaligned frame (20 mm noise), as skix's
-    run_all test writes them; the front SAM3 person track. Returns per
-    person the skeleton in view A's frame and the side views' truth."""
+    run_all test writes them; the front SAM3 person track. With ``frames``
+    the records also store frames (``shifted_frames``) and the skier's
+    person boxes, for the sam3d_body stage. Returns
+    per person the skeleton in view A's frame and the side views' truth."""
     import numpy as np
 
     from skix_torch.io.contracts import PTInfo, save_pt_info
@@ -1480,12 +1552,19 @@ def write_chain_inputs(root: Path, persons: int, T: int, seed: int):
             uv.append(px + rng.normal(size=px.shape) * 0.5)
         for view, px in zip(("osmo_1", "osmo_2"), uv):
             score = np.ones((T, 17), np.float32)
+            extra = {}
+            if frames:
+                lo, hi = px.min(1), px.max(1)
+                extra = dict(frames=shifted_frames(
+                    np.random.default_rng(seed + 1), T, CHAIN_HW),
+                             yolo_bbox=np.concatenate([lo - 20, hi + 20],
+                                                      -1).astype(np.float32))
             save_pt_info(root / "pt" / name / f"{view}.npz", PTInfo(
                 video_name=view, frame_count=T, img_shape=CHAIN_HW, fps=30.0,
                 duration=T / 30.0,
                 d2_keypoints=np.concatenate([px.astype(np.float32),
                                              score[..., None]], -1),
-                d2_keypoints_score=score))
+                d2_keypoints_score=score, **extra))
         gt = (rng.normal(size=(1, 70, 3)) * 0.3
               + rng.normal(size=(T, 70, 3)).cumsum(0) * 0.01)
         ang = 0.3
@@ -1506,6 +1585,26 @@ def write_chain_inputs(root: Path, persons: int, T: int, seed: int):
             -1).astype(np.float32))
         truth[name] = (X, gt)
     return truth
+
+
+def shifted_frames(rng, T: int, hw):
+    """T uint8 frames: one smooth random frame (noise at 1/32 of the size,
+    upsampled bilinearly), shifted 7 px to the right a frame (made in bulk:
+    set-up, not the path). Smooth, so that a crop's pixels move as little
+    as its box does: the hand crops follow predicted keypoints, and on
+    pixel noise a 1e-3 px shift of a box changes what a random model sees
+    by far more than the card's rounding."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    H, W = hw
+    low = torch.tensor(rng.random((1, 3, H // 32 + 2, W // 32 + 2)),
+                       dtype=torch.float32)
+    base = F.interpolate(low, size=(H, W), mode="bilinear",
+                         align_corners=False)[0].permute(1, 2, 0)
+    base = (base * 255).round().to(torch.uint8).numpy()
+    return np.stack([np.roll(base, 7 * t, axis=1) for t in range(T)])
 
 
 def chain_cfg(root: Path, work: Path, device: str, **size):
@@ -1670,27 +1769,36 @@ def chain_reference_phase(tmp: Path, device: str = "cuda"):
     32 and widths [3, 3], BA 8 steps × 10 CG) on the card and on the CPU,
     from the same records and the same lifter weights (an npz written
     once): per kind of artifact, the largest difference against its limit.
-    Then the committed tests/fixtures/lifter_tiny.npz on the card against
-    the CPU on scripts/make_lifter_fixture.py's held-out clips."""
+    Then run_all's side branch, sam3d_body → fuse with ``paths.sam3d_root``
+    unset, on the same records (they store 1080p frames and the skier's
+    boxes) from a tiny SAM3DBody checkpoint at run_all's keys
+    (CHAIN_REF_SIDE), card against CPU: each side-view field against
+    side_ref's limit, the fused joints against 1e-4 (the chain above keeps
+    its pre-written side views: fed a random model's side views, the angle
+    stage's turn boundaries and its angles at straight limbs move with the
+    CPU's own thread count). Then the committed
+    tests/fixtures/lifter_tiny.npz on the card against the CPU on
+    scripts/make_lifter_fixture.py's held-out clips."""
     import importlib.util
 
     import numpy as np
     import torch
 
     from skix_torch.convert import state_dict_to_flax
+    from skix_torch.models.sam3d_body import SAM3DBody
     from skix_torch.models.videopose3d import TemporalLifter, infer_sequence
     from skix_torch.pipelines.run_all import main as run_all
     from skix_torch.pipelines.videopose3d import (build_lifter, init_lifter,
                                                   save_checkpoint)
 
     root = tmp / "chain_ref"
-    truth = write_chain_inputs(root, 1, CHAIN_REF_T, seed=21)
+    truth = write_chain_inputs(root, 1, CHAIN_REF_T, seed=21, frames=True)
     ckpt = root / "lifter.npz"
     save_checkpoint(ckpt, state_dict_to_flax(init_lifter(TemporalLifter(
         filter_widths=CHAIN_REF["filter_widths"],
         channels=CHAIN_REF["channels"])).state_dict()))
-    for side in ("cpu", device):
-        run_all(chain_cfg(root, root / side, side, lifter_checkpoint=str(ckpt),
+    for dev in ("cpu", device):
+        run_all(chain_cfg(root, root / dev, dev, lifter_checkpoint=str(ckpt),
                           **CHAIN_REF))
     check_chain_outputs("chain_ref", root / device, truth, CHAIN_REF_T)
     # limits on |card − CPU| / max(1, |CPU|) by kind: 3D joints in metres
@@ -1765,6 +1873,40 @@ def chain_reference_phase(tmp: Path, device: str = "cuda"):
         bad.append(f"lifter_tiny MPJPE {mpjpe}")
     if bad:
         fail(f"chain_ref: card and CPU disagree: {bad[:8]}")
+
+    # the side branch: the side-view model at run_all's keys (the stage's 6
+    # heads and decoder depth 4), seeded on the CPU, read by both runs
+    side = SAM3DBody(crop_size=CHAIN_REF_SIDE["sam3d_crop_size"],
+                     embed_dim=CHAIN_REF_SIDE["sam3d_embed_dim"],
+                     depth=CHAIN_REF_SIDE["sam3d_depth"])
+    side.init_weights(torch.Generator().manual_seed(5))
+    condition_side_model(side)
+    save_checkpoint(root / "sam3d.npz", state_dict_to_flax(side.state_dict()))
+    for name, dev in (("side_cpu", "cpu"), ("side_card", device)):
+        run_all({"paths": {"pt_root": str(root / "pt"),
+                           "work_root": str(root / name), "video_root": None,
+                           "sam3d_root": None},
+                 "stages": ["sam3d_body", "fuse"],
+                 "sam3d_checkpoint": str(root / "sam3d.npz"),
+                 **CHAIN_REF_SIDE, "device": dev})
+    card = root / "side_card"
+    files = sorted((card / "sam3d" / "p01").glob("*/frame_*.npz"))
+    if len(files) != 2 * CHAIN_REF_T:
+        fail(f"chain_ref: the sam3d_body stage wrote {len(files)} frames")
+    worst = side_diffs(root / "side_cpu" / "sam3d", card / "sam3d")
+    a, b = (np.load(root / d / "fused" / "p01" / "p01_fused.npy")
+            for d in ("side_cpu", "side_card"))
+    if a.shape != (CHAIN_REF_T, 70, 3) or not np.isfinite(b).all():
+        fail(f"chain_ref: the side branch's fused joints are {b.shape}")
+    worst["fused_m"] = float(np.abs(a - b).max())
+    limits = {k: SIDE_REF_LIMITS.get(k, 1e-4) for k in worst}
+    say("chain_ref_side", worst=json.dumps({k: float(f"{v:.3g}")
+                                            for k, v in worst.items()}
+                                           ).replace(" ", ""),
+        limits=json.dumps(limits).replace(" ", ""))
+    bad = [k for k, v in worst.items() if not v <= limits[k]]
+    if bad:
+        fail(f"chain_ref: the side branch's card and CPU disagree on {bad}")
 
 
 def chain_phase(tmp: Path, device: str = "cuda", persons=None, T=None,
@@ -1899,6 +2041,420 @@ def chain_phase(tmp: Path, device: str = "cuda", persons=None, T=None,
     say("chain_profile_top", kernels=json.dumps(
         [[e.key[:60], round(e.self_device_time_total / 1e3, 2), e.count]
          for e in top]).replace(" ", ""))
+    return launches, by_style
+
+
+# --------------------------------------------------------------------------
+# phase 7d: the side-view stage (SAM-3D-Body, MoGe), card against CPU, then
+# at the published DINOv3 width; run_all's side branch at its defaults
+# --------------------------------------------------------------------------
+SIDE_FIELDS = {"pred_keypoints_2d": (70, 2), "pred_keypoints_3d": (70, 3),
+               "pred_vertices": (64, 3), "pred_cam_t": (3,),
+               "focal_length": (), "bbox": (4,), "pred_global_rots": (70, 3, 3),
+               "body_pose_params": (133,), "hand_pose_params": (108,),
+               "scale_params": (28,), "shape_params": (45,)}
+
+
+def write_side_records(root: Path, T: int, seed: int, hw=SIDE_HW,
+                       masks: bool = False):
+    """Person p01's two side-view records ``cam_left`` and ``cam_right`` of T
+    frames of ``hw`` (``shifted_frames``) with the boxes of a skier 300–600
+    px tall (scaled to ``hw``'s height over 1080) crossing the frame; the
+    right record's box starts across the left edge.
+    ``masks``: YOLO person masks (the box's inner half)."""
+    import numpy as np
+
+    from skix_torch.io.contracts import PTInfo, save_pt_info
+
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    frames = shifted_frames(rng, T, hw)
+    k = H / 1080.0
+    h = np.linspace(300.0, 600.0, T) * k
+    for i, view in enumerate(("cam_left", "cam_right")):
+        cx = (np.linspace(0.25 * W, 0.75 * W, T) if i == 0
+              else np.linspace(40.0 * k, 0.5 * W, T))
+        cy = 0.55 * H + 20.0 * k * np.sin(np.arange(T) / 5.0 + i)
+        boxes = np.stack([cx - 0.2 * h, cy - 0.5 * h, cx + 0.2 * h,
+                          cy + 0.5 * h], -1).astype(np.float32)
+        extra = {}
+        if masks:
+            m = np.zeros((T, 1, H, W), np.uint8)
+            for t, (x0, y0, x1, y1) in enumerate(boxes):
+                qx, qy = (x1 - x0) / 4, (y1 - y0) / 4
+                m[t, 0, max(int(y0 + qy), 0):max(int(y1 - qy), 0),
+                  max(int(x0 + qx), 0):max(int(x1 - qx), 0)] = 1
+            extra["yolo_mask"] = m
+        save_pt_info(root / "p01" / f"{view}.npz", PTInfo(
+            video_name=view, frame_count=T, img_shape=hw, fps=30.0,
+            duration=T / 30.0, frames=frames, yolo_bbox=boxes, **extra))
+
+
+def check_side_outputs(phase: str, out: Path, T: int):
+    """The stage's summary covers both records with T frames each, every
+    frame's npz holds every field, finite and of its shape, and the fuse
+    stage's loader reads each record's directory back."""
+    import numpy as np
+
+    from skix_torch.pipelines.fuse import load_sam3d_sequence
+
+    summary = json.loads((out / "sam3d_summary.json").read_text())
+    want = {f"p01/{v}": T for v in ("cam_left", "cam_right")}
+    if summary != want:
+        fail(f"{phase}: sam3d_summary {summary}, expected {want}")
+    for view in ("cam_left", "cam_right"):
+        files = sorted((out / "p01" / view).glob(
+            "frame_*_sam_3d_body_outputs.npz"))
+        if len(files) != T:
+            fail(f"{phase}: {view} has {len(files)} frames, not {T}")
+        for f in files:
+            with np.load(f) as z:
+                for k, shape in SIDE_FIELDS.items():
+                    if k not in z.files or z[k].shape != shape \
+                            or not np.isfinite(z[k]).all():
+                        fail(f"{phase}: {f.name}: {k} missing, misshapen or "
+                             f"not finite")
+        k3, k2 = load_sam3d_sequence(out / "p01" / view)
+        if k3.shape != (T, 70, 3) or k2.shape != (T, 70, 2):
+            fail(f"{phase}: the fuse loader read {k3.shape}, {k2.shape}")
+
+
+def side_diffs(cpu: Path, card: Path) -> dict:
+    """The largest |card − CPU| of each side-view output field over every
+    frame npz under ``cpu`` and its twin under ``card`` (the focal
+    relative)."""
+    import numpy as np
+
+    worst = {}
+    for f in sorted(cpu.rglob("frame_*.npz")):
+        with np.load(f) as a, np.load(card / f.relative_to(cpu)) as b:
+            for k in SIDE_REF_LIMITS:
+                d = float(np.abs(a[k].astype(np.float64) - b[k]).max())
+                if k == "focal_length":
+                    d /= float(np.abs(a[k]).max())
+                worst[k] = max(worst.get(k, 0.0), d)
+    return worst
+
+
+def condition_side_model(model) -> None:
+    """Seeded SAM3DBody weights in a regime where card and CPU are compared
+    on arithmetic, not on conditioning: the camera ~15 m away (random
+    weights put the joints up to 7 m from the root and the camera 2-3 m
+    off, projecting to 7e4 px, where float32's rounding alone exceeds the
+    0.05 px limit), the pose heads' last layer at a tenth (poses near the
+    rest pose, as a trained head predicts: a random head's rotations reach
+    the euler gimbal lock), and the hands' PCA outputs biased to the rest
+    hand's continuous pose (what a real PCA mean supplies: with the
+    stand-in zero mean the hands' 6D vectors sit near 0, where normalizing
+    them amplifies rounding ~1000×)."""
+    import torch
+
+    from skix_torch.models import mhr
+
+    rest_hand = mhr.model_params_to_cont_hand(torch.zeros(27))
+    with torch.no_grad():
+        model.camera_head.fc2.bias[2] = 4.0
+        for head in (model.head_pose, model.head_hand):
+            head.proj_fc2.weight.mul_(0.1)
+            o = 6 + head.body_cont + head.num_shape + head.num_scale
+            head.proj_fc2.bias[o:o + 2 * head.num_hand] = rest_hand.repeat(2)
+
+
+def side_reference_phase(tmp: Path, device: str = "cuda"):
+    """The side-view stage tiny on the card and on the CPU from the same
+    checkpoints and records: ``inference_type: full`` with the vit_hmr
+    backbone and the records' masks, and with a bare DINOv3 trunk (head dim
+    64, rope on the patch rows); each output field's largest |card − CPU|
+    beside its limit. Then the tiny MoGe estimator on both: its point maps
+    and mask logits at two grids (1e-4), and its focal search on synthetic
+    perspective maps (1e-4 relative; on a random model's maps the search is
+    ill-conditioned, so the stage's MoGe focal is not compared)."""
+    import numpy as np
+    import torch
+
+    from skix_torch.convert import state_dict_to_flax
+    from skix_torch.models.moge import (MoGeFovEstimator, MoGePointModel,
+                                        image_uv, recover_focal_shift)
+    from skix_torch.models.sam3d_body import SAM3DBody
+    from skix_torch.pipelines.prepare_side_results import main as side_main
+    from skix_torch.pipelines.videopose3d import save_checkpoint
+
+    root = tmp / "side_ref"
+    T = 6
+    write_side_records(root / "pt", T, seed=45, hw=(120, 160), masks=True)
+    worst, k2_max = {}, 0.0
+    for backbone, mask in (("vit_hmr", True), ("dinov3", False)):
+        kw = dict(crop_size=64, embed_dim=128, vit_depth=2, num_heads=2,
+                  decoder_depth=2, batch_size=4, backbone=backbone)
+        model = SAM3DBody(crop_size=64, embed_dim=128, depth=2, num_heads=2,
+                          decoder_depth=2, backbone=backbone)
+        model.init_weights(torch.Generator().manual_seed(7))
+        condition_side_model(model)
+        ckpt = root / f"{backbone}.npz"
+        save_checkpoint(ckpt, state_dict_to_flax(model.state_dict()))
+        for name, dev in (("cpu", "cpu"), ("card", device)):
+            side_main({"paths": {"pt_root": str(root / "pt"),
+                                 "out_root": str(root / backbone / name)},
+                       "checkpoint": str(ckpt), "inference_type": "full",
+                       "use_mask": mask, "device": dev, **kw})
+        check_side_outputs("side_ref", root / backbone / "card", T)
+        worst.update({f"{backbone}/{k}": v for k, v in side_diffs(
+            root / backbone / "cpu", root / backbone / "card").items()})
+        k2_max = max(k2_max, max(
+            float(np.abs(np.load(f)["pred_keypoints_2d"]).max())
+            for f in (root / backbone / "cpu").rglob("frame_*.npz")))
+    # the tiny MoGe: head dim 32, a 3 × 4 base grid
+    moge = MoGePointModel(patch_size=14, embed_dim=64, depth=2, num_heads=2,
+                          taps=(0, 0, 0, 1), features=32, num_patches=12)
+    moge.init_weights(torch.Generator().manual_seed(8))
+    sd = {k: v.clone() for k, v in moge.state_dict().items()}
+    ests = {name: MoGeFovEstimator(MoGePointModel(
+        patch_size=14, embed_dim=64, depth=2, num_heads=2, taps=(0, 0, 0, 1),
+        features=32), sd, grid=(3, 4), device=dev)
+        for name, dev in (("cpu", "cpu"), ("card", device))}
+    rng = np.random.default_rng(9)
+    for grid in ((3, 4), (5, 6)):
+        x = torch.tensor(rng.random((2, 14 * grid[0], 14 * grid[1], 3)),
+                         dtype=torch.float32)
+        outs = {}
+        with torch.no_grad():
+            for name, est in ests.items():
+                pts, msk = est.model(x.to(est.device),
+                                     est._pos_embed_for(*grid))
+                outs[name] = (pts.cpu(), msk.cpu())
+        for i, name in enumerate(("moge/points", "moge/mask_logits")):
+            a, b = outs["cpu"][i], outs["card"][i]
+            d = float((a - b).abs().max()) / max(1.0, float(a.abs().max()))
+            worst[name] = max(worst.get(name, 0.0), d)
+    H, W = 60, 80
+    u, v = (t.numpy() for t in image_uv(H, W))
+    z = 1.0 + 2.0 * rng.random((3, H, W)).astype(np.float32)
+    f_true = np.array([0.6, 0.8, 1.1], np.float32)[:, None, None]
+    synth = torch.tensor(np.stack([u * z / f_true, v * z / f_true, z - 0.3],
+                                  -1), dtype=torch.float32)
+    fs = [recover_focal_shift(synth.to(dev))[0].cpu()
+          for dev in ("cpu", device)]
+    worst["moge/focal_synthetic"] = float(
+        ((fs[0] - fs[1]).abs() / fs[0]).max())
+    limits = {k: SIDE_REF_LIMITS[k.split("/")[1]] if k.split("/")[1] in
+              SIDE_REF_LIMITS else 1e-4 for k in worst}
+    say("side_ref", worst=json.dumps({k: float(f"{v:.3g}")
+                                      for k, v in worst.items()}
+                                     ).replace(" ", ""),
+        limits=json.dumps(limits).replace(" ", ""),
+        keypoints_2d_max_px=round(k2_max, 1))
+    bad = [k for k, v in worst.items() if not v <= limits[k]]
+    if bad:
+        fail(f"side_ref: card and CPU disagree on {bad}")
+
+
+def side_phase(tmp: Path, device: str = "cuda"):
+    """``prepare_side_results`` at SIDE_CFG (the published DINOv3 ViT-H+/16
+    width at crop 512, full inference, MoGe-2 at its full width every 8th
+    frame; seeded weights) on two 64-frame 1080p records: cold (launch
+    counts reset just before and read just after: exactly 128 K1 launches a
+    SAM-3D-Body batch and 24 a MoGe batch, and no other kernel), every
+    output checked; warm; each model pass timed alone; then once under
+    torch.profiler (device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines.prepare_side_results import main as side_main
+
+    root = tmp / "side"
+    t0 = time.perf_counter()
+    write_side_records(root / "pt", SIDE_T, seed=41)
+    setup_s = time.perf_counter() - t0
+
+    on_card = device == "cuda"
+
+    def cfg(out):
+        return {"paths": {"pt_root": str(root / "pt"), "out_root": str(out)},
+                **SIDE_CFG, "device": device}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    side_main(cfg(root / "cold"))
+    sync()
+    cold_s = time.perf_counter() - t0
+    launches, by_style = dict(A.LAUNCHES), dict(A.LAUNCHES_BY_STYLE)
+    peak = (round(torch.cuda.max_memory_allocated() / 2 ** 30, 3)
+            if on_card else "not measured")
+    check_side_outputs("side", root / "cold", SIDE_T)
+    batches = 2 * -(-SIDE_T // SIDE_CFG["batch_size"])
+    strided = len(range(0, SIDE_T, SIDE_CFG["fov_stride"]))
+    moge_batches = 2 * -(-strided // MOGE_BATCH)
+    expected_style = {"flash_fwd/segments": batches * SIDE_PER_BATCH,
+                      "flash_fwd/none": moge_batches * MOGE_PER_BATCH}
+    expected = {"flash_fwd": sum(expected_style.values())}
+    frames = 2 * SIDE_T
+    say("side", frames=frames, cold_wall_s=round(cold_s, 3),
+        cold_ms_per_frame=round(cold_s / frames * 1e3, 2),
+        records_setup_s=round(setup_s, 3), peak_mem_gib=peak,
+        launches=json.dumps(launches).replace(" ", ""),
+        launches_by_style=json.dumps(by_style).replace(" ", ""),
+        expected=json.dumps(expected_style).replace(" ", ""))
+    if launches != expected or by_style != expected_style:
+        fail(f"side: launches {launches} by style {by_style}, expected "
+             f"{expected_style}")
+
+    t0 = time.perf_counter()
+    side_main(cfg(root / "warm"))
+    sync()
+    warm_s = time.perf_counter() - t0
+    say("side_warm", wall_s=round(warm_s, 3),
+        ms_per_frame=round(warm_s / frames * 1e3, 2))
+    side_pass_times(root, device)
+    if not on_card:
+        return launches, by_style
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        side_main(cfg(root / "prof"))
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    k1_ms = sum(e.self_device_time_total for e in kernels
+                if "flash_fwd_kernel" in e.key) / 1e3
+    rope_ms = sum(e.self_device_time_total for e in kernels
+                  if "rope_rows_kernel" in e.key) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    say("side_profile", wall_ms=round(prof_wall_ms, 1),
+        device_busy_ms=round(busy_ms, 2),
+        device_idle_share=round(1.0 - busy_ms / prof_wall_ms, 4),
+        k1_ms=round(k1_ms, 2), k1_busy_share=round(k1_ms / busy_ms, 4),
+        rope_pass_ms=round(rope_ms, 2),
+        kernels_launched=sum(e.count for e in kernels))
+    say("side_profile_top", kernels=json.dumps(
+        [[e.key[:60], round(e.self_device_time_total / 1e3, 2), e.count]
+         for e in top]).replace(" ", ""))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, by_style
+
+
+def side_pass_times(root: Path, device: str = "cuda"):
+    """Each model pass of a SAM-3D-Body batch (8 frames of 1080p) alone,
+    warm (CUDA events, median of 3): the crop, the body pass, a hand pass,
+    the body pass with the refined hands, the whole batch; MoGe's forward
+    on a batch of 4 padded frames and its focal search; per frame."""
+    import torch
+
+    from skix_torch.io.contracts import load_pt_info
+    from skix_torch.models.moge import recover_focal_shift
+    from skix_torch.models.sam3d_body import bbox_center_scale, crop_resize
+    from skix_torch.pipelines.prepare_side_results import (
+        build_estimator, build_fov_estimator)
+
+    cfg = {**SIDE_CFG, "device": device}
+    est, fov = build_estimator(cfg), build_fov_estimator(cfg)
+    info = load_pt_info(root / "pt" / "p01" / "cam_right.npz")
+    B, S = SIDE_CFG["batch_size"], SIDE_CFG["crop_size"]
+    dev = est.device
+    with torch.no_grad():
+        frames = torch.from_numpy(info.frames[:B]).to(dev).float() / 255.0
+        c, s = bbox_center_scale(torch.as_tensor(info.yolo_bbox[:B],
+                                                 device=dev))
+        crops = crop_resize(frames, c, s, S)
+        hand = est.model(crops).mhr.hand
+        ms = {"crop": cuda_ms(lambda: crop_resize(frames, c, s, S), 3),
+              "body_pass": cuda_ms(lambda: est.model(crops), 3),
+              "hand_pass": cuda_ms(lambda: est.model(
+                  crops, decoder_type="hand"), 3),
+              "body_override_pass": cuda_ms(lambda: est.model(
+                  crops, hand_override=hand), 3),
+              "batch_full": cuda_ms(lambda: est._forward_batch(
+                  frames, c, s, True), 3)}
+        H, W = frames.shape[1:3]
+        ps = fov.model.patch_size
+        Hp, Wp = H + (-H) % ps, W + (-W) % ps
+        pos = fov._pos_embed_for(Hp // ps, Wp // ps)
+        chunk = torch.nn.functional.pad(frames[:MOGE_BATCH],
+                                        (0, 0, 0, Wp - W, 0, Hp - H))
+        pts, msk = fov.model(chunk, pos)
+        moge_ms = cuda_ms(lambda: fov.model(chunk, pos), 3)
+        focal_ms = cuda_ms(lambda: recover_focal_shift(
+            pts, torch.sigmoid(msk) > 0.5), 3)
+    say("side_passes", **{f"{k}_ms_per_frame": round(v / B, 3)
+                          for k, v in ms.items()},
+        moge_forward_ms_per_strided_frame=round(moge_ms / MOGE_BATCH, 3),
+        moge_focal_search_ms_per_strided_frame=round(focal_ms / MOGE_BATCH, 3),
+        sam3d_params_m=round(sum(p.numel() for p in est.model.parameters())
+                             / 1e6, 1),
+        moge_params_m=round(sum(p.numel() for p in fov.model.parameters())
+                            / 1e6, 1))
+    del est, fov
+
+
+def side_chain_phase(tmp: Path, device: str = "cuda", T=None, hw=None):
+    """run_all with the sam3d_body stage (``paths.sam3d_root`` unset) at its
+    default widths, then fuse, angle and metrics on 1 person × 2 records ×
+    300 frames of 1080p (cut from 4 persons × 900 frames: disk, host memory
+    and the time limit): cold, launch counts reset just before and read
+    just after (exactly 32 K1 launches a batch a record), every artifact
+    checked."""
+    import numpy as np
+    import torch
+
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines.run_all import main as run_all
+
+    T = T or SIDE_CHAIN_T
+    on_card = device == "cuda"
+    root = tmp / "side_chain"
+    t0 = time.perf_counter()
+    write_side_records(root / "pt", T, seed=43, hw=hw or SIDE_HW)
+    setup_s = time.perf_counter() - t0
+    work = root / "work"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    run_all({"paths": {"pt_root": str(root / "pt"), "work_root": str(work),
+                       "video_root": None, "sam3d_root": None},
+             "stages": SIDE_CHAIN_STAGES, "plots": False, "gt_root": None,
+             "device": device})
+    if on_card:
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, by_style = dict(A.LAUNCHES), dict(A.LAUNCHES_BY_STYLE)
+    check_side_outputs("side_chain", work / "sam3d", T)
+    fused = np.load(work / "fused" / "p01" / "p01_fused.npy")
+    if fused.shape != (T, 70, 3) or not np.isfinite(fused).all():
+        fail(f"side_chain: fused {fused.shape}, not a finite ({T}, 70, 3)")
+    for rel in ("angle/p01/angles.csv", "angle/angle_summary.json",
+                "metrics/metrics_report.json", "fused/fuse_summary.json"):
+        if not (work / rel).exists():
+            fail(f"side_chain: no {rel}")
+    timing = json.loads((work / "pipeline_timing.json").read_text())
+    batches = 2 * -(-T // 8)
+    expected = {"flash_fwd": batches * SIDE_CHAIN_PER_BATCH}
+    say("side_chain", persons=1, records=2, frames=T,
+        wall_s=round(wall_s, 3), inputs_setup_s=round(setup_s, 3),
+        **{f"{k}_s": v["total_s"] for k, v in timing.items()},
+        sam3d_ms_per_frame=round(timing["sam3d_body"]["total_s"]
+                                 / (2 * T) * 1e3, 3),
+        peak_mem_gib=(round(torch.cuda.max_memory_allocated() / 2 ** 30, 3)
+                      if on_card else "not measured"),
+        launches=json.dumps(launches).replace(" ", ""),
+        expected=json.dumps(expected).replace(" ", ""))
+    if launches != expected or set(by_style) != {"flash_fwd/none"}:
+        fail(f"side_chain: launches {launches} ({by_style}), expected "
+             f"{expected}")
     return launches, by_style
 
 
@@ -2309,6 +2865,14 @@ def main() -> int:
         # full width, warm, profiled, and its pieces timed alone
         chain_reference_phase(tmp)
         paths["chain"] = chain_phase(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 7d. the side-view stage: tiny, card against CPU; at the published
+        # DINOv3 width with MoGe, warm, per pass, profiled; run_all's side
+        # branch at its defaults
+        side_reference_phase(tmp)
+        paths["side"] = side_phase(tmp)
+        paths["side_chain"] = side_chain_phase(tmp)
         gc.collect()
         torch.cuda.empty_cache()
         # 8. one training step, tiny, card against CPU

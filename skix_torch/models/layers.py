@@ -3,7 +3,9 @@
 Port of ``skix/models/layers.py``: pre-LN ``Block`` with LayerScale, QK-norm
 and 2D rope, ``Mlp``, ``PatchEmbed`` and the 2D rope itself; plus the flax
 layers the SAM3 front path needs (``Conv`` with flax's ``SAME`` padding,
-``ConvTranspose``, ``GroupNorm``). Submodules
+``ConvTranspose``, ``GroupNorm``); ``PatchConv`` (a flax ``Conv`` whose
+kernel equals its stride, as one product) and the DINOv2-shaped
+``VisionTransformer`` of the side-view models. Submodules
 carry the flax names (``attn.qkv``, ``q_norm``, ``ls1.gamma``, …), so
 ``skix_torch.convert`` maps a skix variables tree onto them leaf by leaf.
 
@@ -224,14 +226,35 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
 
     def forward(self, x):
-        B, H, W, Cin = x.shape
-        p = self.patch_size
-        gh, gw = H // p, W // p
-        patches = (x[:, :gh * p, :gw * p].reshape(B, gh, p, gw, p, Cin)
-                   .permute(0, 1, 3, 2, 4, 5).reshape(B, gh * gw, p * p * Cin))
-        w = self.proj.weight.permute(0, 2, 3, 1).reshape(-1, p * p * Cin)
-        return F.linear(patches.to(self.dtype), w.to(self.dtype),
-                        self.proj.bias.to(self.dtype))
+        h = _patch_product(x, self.proj.weight, self.proj.bias,
+                           self.patch_size, self.dtype)
+        return h.reshape(h.shape[0], -1, h.shape[-1])
+
+
+def _patch_product(x, weight, bias, p: int, dtype=torch.float32):
+    """A p×p, stride-p convolution of channels-last ``x (B, H, W, Cin)`` (an
+    OIHW ``weight``) as one product of the (py, px, c) patch vectors with the
+    flattened kernel: ``(B, H/p, W/p, O)``."""
+    B, H, W, Cin = x.shape
+    gh, gw = H // p, W // p
+    patches = (x[:, :gh * p, :gw * p].reshape(B, gh, p, gw, p, Cin)
+               .permute(0, 1, 3, 2, 4, 5).reshape(B, gh, gw, p * p * Cin))
+    w = weight.permute(0, 2, 3, 1).reshape(weight.shape[0], -1)
+    return F.linear(patches.to(dtype), w.to(dtype), bias.to(dtype))
+
+
+class PatchConv(nn.Conv2d):
+    """``flax.linen.Conv`` whose kernel equals its stride (``VALID``, or
+    ``SAME`` on an input the stride divides, which pads nothing), on
+    channels-last input ``(B, H, W, C)`` → ``(B, H/p, W/p, O)``; the weight
+    is stored OIHW. Computed as one product (a full float32 matmul on the
+    card, where cuDNN would take a float32 convolution in TF32)."""
+
+    def __init__(self, in_features: int, out_features: int, patch: int):
+        super().__init__(in_features, out_features, patch, stride=patch)
+
+    def forward(self, x):
+        return _patch_product(x, self.weight, self.bias, self.kernel_size[0])
 
 
 class GroupNorm(nn.Module):
@@ -309,6 +332,71 @@ class ConvTranspose(nn.Conv2d):
         kh, kw = self.kernel_size
         y = torch.einsum("bijc,ocuv->biujvo", x, self.weight.flip(2, 3))
         return y.reshape(B, h * kh, w * kw, -1) + self.bias
+
+
+class VisionTransformer(nn.Module):
+    """Plain ViT encoder with register tokens (port of skix's
+    ``VisionTransformer``, DINOv2-shaped): ``patch_embed`` → ``[cls + pos₀,
+    registers, patches + pos]`` → ``depth`` pre-LN blocks with LayerScale
+    (LayerNorm eps 1e-6) → ``norm``; returns the normalized patch tokens
+    (cls and registers stripped), and with ``taps`` also the patch tokens
+    after each tapped block (unnormalized). The learned ``pos_embed`` (1, P
+    + 1, C) is sized by ``num_patches``; ``forward`` takes another one of
+    the input's grid (a resampled table) in its place. Attention runs
+    through ``flash_attention`` (K1 on the card)."""
+
+    def __init__(self, patch_size: int = 14, embed_dim: int = 1024,
+                 depth: int = 24, num_heads: int = 16, mlp_ratio: float = 4.0,
+                 num_register_tokens: int = 4, init_values: float = 1.0,
+                 taps: Optional[tuple] = None, num_patches: int = 1):
+        super().__init__()
+        self.depth = depth
+        self.init_values = init_values
+        self.num_register_tokens = num_register_tokens
+        self.taps = tuple(taps) if taps else None
+        self.patch_embed = PatchEmbed(patch_size, embed_dim)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        self.register_tokens = nn.Parameter(
+            torch.zeros(1, num_register_tokens, embed_dim))
+        self.pos_embed = nn.Parameter(torch.zeros(1, num_patches + 1,
+                                                  embed_dim))
+        for i in range(depth):
+            setattr(self, f"block_{i}", Block(
+                embed_dim, num_heads, mlp_ratio, init_values=init_values,
+                ln_eps=1e-6))
+        self.norm = LayerNorm(embed_dim, 1e-6)
+
+    def init_weights(self, generator=None):
+        """flax's initializers: LeCun-normal kernels, zero tokens, the
+        position table N(0, 0.02²), LayerScale at ``init_values``."""
+        init_like_flax(self, generator)
+        with torch.no_grad():
+            self.cls_token.zero_()
+            self.register_tokens.zero_()
+            self.pos_embed.normal_(0.0, 0.02, generator=generator)
+            for m in self.modules():
+                if isinstance(m, LayerScale):
+                    m.gamma.fill_(self.init_values)
+        return self
+
+    def forward(self, images, pos_embed=None):
+        x = self.patch_embed(images)
+        B, _, C = x.shape
+        pos = self.pos_embed if pos_embed is None else pos_embed
+        x = x + pos[:, 1:]
+        cls_t = (self.cls_token + pos[:, :1]).expand(B, 1, C)
+        reg_t = self.register_tokens.expand(B, self.num_register_tokens, C)
+        x = torch.cat([cls_t, reg_t, x], dim=1)
+        n_prefix = 1 + self.num_register_tokens
+        taps, want = [], set(self.taps or ())
+        for i in range(self.depth):
+            x = getattr(self, f"block_{i}")(x)
+            if i in want:
+                taps.append(x[:, n_prefix:])
+        x = self.norm(x)
+        if self.taps:
+            return x[:, n_prefix:], taps
+        return x[:, n_prefix:]
 
 
 def cast_to_compute_dtype(module: nn.Module) -> nn.Module:

@@ -4,10 +4,14 @@ Port of ``skix/pipelines/run_all.py``. Ported stages, run in skix's order
 over one dataset root, each into the directory skix uses under
 ``work_root``: ``videopose3d`` (``videopose3d/``), ``triangulation``
 (``joints_3d/``), ``vggt`` (``vggt/``), ``bundle_adjustment`` (``ba/``,
-skipped with a warning when ``joints_3d`` does not exist), ``fuse``
-(``fused/``, from ``paths.sam3d_root``; skipped with a warning when it is
-missing), ``prepare_front_results`` (``front/``, skipped, as in skix,
-when ``paths.front_root`` is given or the video root is missing),
+skipped with a warning when ``joints_3d`` does not exist),
+``sam3d_body`` (``sam3d/``, run only when ``paths.sam3d_root`` is unset,
+as in skix: it passes skix's ``sam3d_checkpoint``, ``sam3d_crop_size``,
+``sam3d_embed_dim``, ``sam3d_depth``, ``sam3d_batch_size`` and
+``sam3d_inference_type``, default ``full``), ``fuse`` (``fused/``, from
+``paths.sam3d_root`` or the sam3d stage's output; skipped with a warning
+when it is missing), ``prepare_front_results`` (``front/``, skipped, as in
+skix, when ``paths.front_root`` is given or the video root is missing),
 ``front_side`` (``front_side/``, skipped when the front or side inputs
 are missing), ``angle`` and ``metrics`` (``angle/``, ``metrics/``, skipped
 when ``fused/`` does not exist). The default stages are skix's:
@@ -25,10 +29,9 @@ config as an in-memory mapping (skix writes it to
 ``generated_configs/<stage>.yaml`` first), so a run whose own config is a
 mapping needs no PyYAML.
 
-A requested stage that is not ported yet (``prepare_dataset``,
-``sam3d_body``) raises ``NotImplementedError`` naming it; nothing is
-skipped silently. ``device`` (default ``cuda``) selects where the stages
-run.
+A requested stage that is not ported yet (``prepare_dataset``) raises
+``NotImplementedError`` naming it; nothing is skipped silently. ``device``
+(default ``cuda``) selects where the stages run.
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ from skix_torch.utils.profiling import StageTimer
 log = logging.getLogger(__name__)
 
 PORTED_STAGES = ("videopose3d", "triangulation", "vggt", "bundle_adjustment",
-                 "fuse", "prepare_front_results", "front_side", "angle",
-                 "metrics")
+                 "sam3d_body", "fuse", "prepare_front_results", "front_side",
+                 "angle", "metrics")
 DEFAULT_STAGES = ["videopose3d", "triangulation", "bundle_adjustment", "fuse",
                   "angle", "metrics"]
 
@@ -148,6 +151,25 @@ def main(cfg):
         summary["bundle_adjustment"] = str(work / "ba")
 
     sam3d_root = cfg.paths.get("sam3d_root")
+    if "sam3d_body" in stages and not sam3d_root:
+        from skix_torch.pipelines.prepare_side_results import main as sam3d
+
+        sam3d_root = work / "sam3d"
+        with timer.span("sam3d_body", sync):
+            sam3d({
+                "paths": {"pt_root": str(pt_root),
+                          "out_root": str(sam3d_root)},
+                "checkpoint": cfg.get("sam3d_checkpoint"),
+                "crop_size": int(cfg.get("sam3d_crop_size", 256)),
+                "embed_dim": int(cfg.get("sam3d_embed_dim", 384)),
+                "vit_depth": int(cfg.get("sam3d_depth", 8)),
+                "batch_size": int(cfg.get("sam3d_batch_size", 8)),
+                "inference_type": str(cfg.get("sam3d_inference_type",
+                                              "full")),
+                "device": device,
+            })
+        summary["sam3d_body"] = str(sam3d_root)
+
     fused_root = work / "fused"
     if "fuse" in stages:
         if sam3d_root and Path(sam3d_root).exists():

@@ -1,8 +1,10 @@
-"""Device selection for the port's entry points, and the card's numerics
-where they need care (cuDNN's TF32, cuSOLVER's batch limit)."""
+"""Device selection for the port's entry points, the card's numerics where
+they need care (cuDNN's TF32, cuSOLVER's batch limit), and constant arrays
+kept on the device."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -36,3 +38,20 @@ def by_chunks(fn, M: torch.Tensor, chunk: int = 16384):
     parts = [fn(flat[i:i + chunk]) for i in range(0, max(len(flat), 1), chunk)]
     return tuple(torch.cat(outs).reshape(*M.shape[:-2], *outs[0].shape[1:])
                  for outs in zip(*parts))
+
+
+_CONSTANTS: dict = {}
+
+
+def constant(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """The numpy array ``a``, a module-level constant (index tables, signs),
+    as a tensor on ``device``, copied there once per array, device and
+    dtype (the cache holds ``a``: pass no temporaries). A copy from pageable
+    host memory is synchronous: a model that made its index tensors on
+    every call would drain the card's queue at each one."""
+    key = (id(a), str(device), dtype)
+    hit = _CONSTANTS.get(key)
+    if hit is None or hit[0] is not a:
+        hit = _CONSTANTS[key] = (a, torch.as_tensor(a, device=device,
+                                                    dtype=dtype))
+    return hit[1]

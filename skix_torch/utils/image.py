@@ -10,6 +10,12 @@ port therefore builds jax's weight matrices (``compute_weight_mat``) and
 applies them as one product per resized axis; an axis whose size does not
 change is left as it is, as jax leaves it. Nearest takes jax's source
 index ``floor((i + 0.5) · n_in / n_out)`` computed in float32.
+
+:func:`scale_and_translate_weights` builds the same triangle weights for
+``jax.image.scale_and_translate(..., method="linear")`` (antialiased), one
+matrix per batch row, for crops whose scale and translation differ from
+frame to frame; :func:`scale_and_translate` applies them to a batch of
+channels-last images as two batched products.
 """
 
 from __future__ import annotations
@@ -79,3 +85,49 @@ def resize(x: torch.Tensor, shape: Sequence[int],
         else:
             x = torch.movedim(torch.tensordot(x, w, dims=([d], [0])), -1, d)
     return x
+
+
+def scale_and_translate_weights(n_in: int, n_out: int, scale: torch.Tensor,
+                                translation: torch.Tensor) -> torch.Tensor:
+    """``(B, n_in, n_out)`` float32 weights of ``jax.image.scale_and_translate
+    (..., method="linear")`` along one axis, for per-row ``scale`` and
+    ``translation`` ``(B,)``: output sample ``i`` reads input location
+    ``(i + 0.5 − translation) / scale − 0.5``, with a triangle kernel
+    widened by 1/scale when downsampling, columns normalized to sum 1 over
+    the in-range inputs, and zero where the location falls outside the
+    input."""
+    scale = scale.to(torch.float32)[:, None]
+    translation = translation.to(torch.float32)[:, None]
+    dev = scale.device
+    inv_scale = 1.0 / scale
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample_f = ((torch.arange(n_out, dtype=torch.float32, device=dev) + 0.5)
+                * inv_scale - translation * inv_scale - 0.5)      # (B, n_out)
+    x = torch.abs(sample_f[:, None, :]
+                  - torch.arange(n_in, dtype=torch.float32,
+                                 device=dev)[None, :, None]) / kernel_scale[
+                                     :, :, None]
+    w = torch.clamp(1.0 - torch.abs(x), min=0.0)
+    total = w.sum(dim=1, keepdim=True)
+    w = torch.where(torch.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return torch.where(inside[:, None, :], w, torch.zeros_like(w))
+
+
+def scale_and_translate(images: torch.Tensor, out_hw, scale: torch.Tensor,
+                        translation: torch.Tensor) -> torch.Tensor:
+    """Per-row ``jax.image.scale_and_translate(image, (H', W', C), (0, 1),
+    scale[b], translation[b], method="linear")`` over a batch ``images (B,
+    H, W, C)`` float32: ``scale`` and ``translation`` are ``(B, 2)`` as
+    (y, x). Returns ``(B, H', W', C)`` float32."""
+    B, H, W, C = images.shape
+    Ho, Wo = out_hw
+    wy = scale_and_translate_weights(H, Ho, scale[:, 0], translation[:, 0])
+    wx = scale_and_translate_weights(W, Wo, scale[:, 1], translation[:, 1])
+    # x axis: (B, H·C, W) @ (B, W, W') → (B, H, C, W')
+    t = torch.matmul(images.permute(0, 1, 3, 2).reshape(B, H * C, W), wx)
+    # y axis: (B, H', H) @ (B, H, C·W') → (B, H', C, W')
+    t = torch.matmul(wy.transpose(1, 2), t.reshape(B, H, C * Wo))
+    return t.reshape(B, Ho, C, Wo).permute(0, 1, 3, 2)

@@ -29,22 +29,26 @@ def random_variables(module, rng, *inputs, **init_kw):
 
 
 
-def _close(a, b, atol, where):
+def _close(a, b, atol, where, scaled=False):
     """``a`` and ``b`` (JSON values, CSV cells, arrays) agree: numbers within
-    ``atol`` (NaN equal to NaN, as a missing value), everything else equal."""
+    ``atol`` (NaN equal to NaN, as a missing value), everything else equal.
+    ``scaled``: ``atol`` is relative to each array's largest element where
+    that exceeds 1."""
     if isinstance(a, dict):
         assert set(a) == set(b), (where, sorted(a), sorted(b))
         for k in a:
-            _close(a[k], b[k], atol, f"{where}/{k}")
+            _close(a[k], b[k], atol, f"{where}/{k}", scaled)
     elif isinstance(a, (list, tuple)):
         assert len(a) == len(b), (where, len(a), len(b))
         for i, (x, y) in enumerate(zip(a, b)):
-            _close(x, y, atol, f"{where}[{i}]")
+            _close(x, y, atol, f"{where}[{i}]", scaled)
     elif isinstance(a, np.ndarray) and a.dtype.kind not in "fc":
         np.testing.assert_array_equal(a, b, err_msg=where)
     elif isinstance(a, (float, int, np.ndarray)) and not isinstance(a, bool):
-        np.testing.assert_allclose(np.asarray(a, np.float64),
-                                   np.asarray(b, np.float64), atol=atol,
+        a = np.asarray(a, np.float64)
+        if scaled and a.size and np.isfinite(a).any():
+            atol = atol * max(1.0, float(np.nanmax(np.abs(a))))
+        np.testing.assert_allclose(a, np.asarray(b, np.float64), atol=atol,
                                    rtol=0, equal_nan=True, err_msg=where)
     else:
         assert a == b, (where, a, b)
@@ -58,12 +62,13 @@ def _cell(s):
 
 
 def assert_same_outputs(want_dir, got_dir, atol=1e-4, limits=None,
-                        ignore=()):
+                        ignore=(), scaled=False):
     """Every file skix wrote under ``want_dir`` exists under ``got_dir`` (and
     no other), with the same content: arrays (``.npy``, each array of an
     ``.npz``), JSON documents (the same keys) and CSV tables agree within
-    ``atol``, or ``limits[<file name>]``; a file whose name is in ``ignore``
-    (timings, videos) only has to exist."""
+    ``atol``, or ``limits[<file name>]`` (with ``scaled``, relative to each
+    array's largest element where that exceeds 1); a file whose name is in
+    ``ignore`` (timings, videos) only has to exist."""
     import csv
     import json
     from pathlib import Path
@@ -81,11 +86,11 @@ def assert_same_outputs(want_dir, got_dir, atol=1e-4, limits=None,
         if rel.name in ignore or rel.suffix in (".mp4", ".png"):
             continue
         if rel.suffix == ".npy":
-            _close(np.load(a), np.load(b), tol, str(rel))
+            _close(np.load(a), np.load(b), tol, str(rel), scaled)
         elif rel.suffix == ".npz":
             with np.load(a) as za, np.load(b) as zb:
                 _close({k: za[k] for k in za.files},
-                       {k: zb[k] for k in zb.files}, tol, str(rel))
+                       {k: zb[k] for k in zb.files}, tol, str(rel), scaled)
         elif rel.suffix == ".json":
             _close(json.loads(a.read_text()), json.loads(b.read_text()), tol,
                    str(rel))
@@ -111,3 +116,57 @@ def run_stage_twins(tmp_path, name, body, skix_main, port_main):
         fn([f"--config-dir={cdir}"])
         outs[side] = out
     return outs["skix"], outs["port"]
+
+
+def close_scaled(got, want, tol):
+    """``got`` within ``tol`` of ``want``, relative to ``want``'s largest
+    element where that exceeds 1 (pixels, cm-scale rig sums)."""
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=0,
+                               atol=tol * max(1.0, float(np.abs(want).max())))
+
+
+def sam3d_body_pair(rng, **kw):
+    """skix's ``SAM3DBody(**kw)``, random variables for every parameter the
+    estimator reaches (the body tree with the prompt encoder, and the hand
+    branch; a DINOv3 trunk keeps its formula's rope periods), the port's
+    model carrying them, and skix's jitted apply: ``(skix_model,
+    variables, port_model, apply)``."""
+    import jax.numpy as jnp
+
+    from skix.models.sam3d_body import SAM3DBody
+    from skix_torch.convert import flax_to_state_dict, load_into
+    from skix_torch.models import sam3d_body as P
+
+    smod = SAM3DBody(**kw)
+    crops = jnp.zeros((1, smod.crop_size, smod.crop_size, 3))
+    v = random_variables(smod, rng, crops, jnp.zeros((1, 3, 3)),
+                         jnp.ones((1, 3), bool))
+    params = dict(v["params"])
+    # the hand branch: its init tokens and head, shaped as the body's
+    params["hand_init_tokens"] = 0.05 * rng.normal(
+        size=params["init_tokens"].shape).astype(np.float32)
+    params["head_hand"] = jax.tree_util.tree_map(
+        lambda a: (rng.normal(size=a.shape) / np.sqrt(a.shape[0]) if a.ndim
+                   == 2 else 0.05 * rng.normal(size=a.shape)).astype(
+                       np.float32), params["head_pose"])
+    if smod.backbone.startswith("dinov3"):
+        from skix.models.dinov3 import dinov3_rope_periods
+
+        trunk = params["dino_backbone"]
+        params["dino_backbone"] = dict(trunk, rope_periods=dinov3_rope_periods(
+            4 * trunk["rope_periods"].shape[0]))
+    variables = {"params": params}
+    model = P.SAM3DBody(**kw)
+    assert not load_into(model, flax_to_state_dict(variables))
+    return (smod, variables, model.eval(),
+            jax.jit(smod.apply, static_argnames=("decoder_type",)))
+
+
+def assert_sam3d_outputs_close(got, want, tol=1e-4):
+    """Every field of two ``SAM3DBodyOutputs`` (the MHR head's too) agrees
+    within ``tol`` (:func:`close_scaled`)."""
+    for name in want.mhr._fields:
+        close_scaled(getattr(got.mhr, name), getattr(want.mhr, name), tol)
+    for name in ("cam_t", "joints_3d", "joints_2d_crop", "vertices_3d"):
+        close_scaled(getattr(got, name), getattr(want, name), tol)

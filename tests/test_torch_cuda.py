@@ -504,3 +504,44 @@ def test_cuda_batched_ransac_matches_cpu(cuda):
     assert torch.equal(got.inliers.cpu(), want.inliers)
     assert (got.R.cpu() - want.R).abs().max().item() < 1e-4
     assert (got.t.cpu() - want.t).abs().max().item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,rope", [
+    ((8, 6, 256, 64), False),      # run_all's vit_hmr side backbone
+    ((8, 20, 1029, 64), True),     # DINOv3 ViT-H+/16 at crop 512
+    ((4, 16, 10769, 64), False),   # MoGe ViT-L/14 on padded 1080p frames
+])
+def test_cuda_side_view_shapes_match_plain(cuda, shape, rope):
+    """K1 at the side-view path's shapes against the plain version, float32
+    (the sum order alone: 1e-5). The DINOv3 case ropes with the trunk's
+    tables: identity rows (cos 1, sin 0) for its 5 prefix tokens, its axial
+    angles on the 32² patch rows, rotate-half over the whole head (the
+    one-segment style); the rope pass leaves the prefix rows of q (times
+    sm_scale·log2e) and k as they are. MoGe's plain version runs a batch row
+    at a time (a 7.4 GB score matrix each)."""
+    from skix_torch.models.dinov3 import (dinov3_rope_periods,
+                                          rope_tables_with_prefix)
+
+    B, H, S, D = shape
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda) for _ in range(3))
+    kw = {}
+    if rope:
+        cos, sin = rope_tables_with_prefix(torch.as_tensor(
+            dinov3_rope_periods(D), device=cuda), 32, 32, 5)
+        assert torch.equal(cos[:5], torch.ones_like(cos[:5]))
+        assert torch.equal(sin[:5], torch.zeros_like(sin[:5]))
+        kw = dict(rope_cos=cos, rope_sin=sin, rope_rotate=("segments", (D,)))
+        qr = A._rope_pass(q, cos, sin, A._rotation_codes(
+            D, ("segments", (D,)), q.device), None)
+        torch.testing.assert_close(qr[:, :, :5], q[:, :, :5], rtol=0, atol=0)
+    before = A.LAUNCHES["flash_fwd"]
+    with torch.no_grad():
+        out = A.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert A.LAUNCHES["flash_fwd"] == before + 1
+        ref = torch.cat([A.attention_reference(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], 1 / math.sqrt(D), **kw)
+            for b in range(B)])
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)

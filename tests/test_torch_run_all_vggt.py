@@ -210,8 +210,8 @@ def test_unported_stages_and_modes_raise(tmp_path):
     from skix_torch.pipelines.vggt import main as torch_vggt
 
     cfg = {"paths": {"pt_root": str(tmp_path), "work_root": str(tmp_path)},
-           "stages": ["vggt", "sam3d_body"], "device": "cpu"}
-    with pytest.raises(NotImplementedError, match="sam3d_body"):
+           "stages": ["vggt", "prepare_dataset"], "device": "cpu"}
+    with pytest.raises(NotImplementedError, match="prepare_dataset"):
         torch_run_all(cfg)
     with pytest.raises(NotImplementedError, match="sfm slice"):
         torch_vggt({"mode": "single", "device": "cpu",
