@@ -262,10 +262,10 @@ class GroupNorm(nn.Module):
     statistics per (sample, group) over every non-batch axis, with
     var = max(E[x²] − E[x]², 0); f32 output."""
 
-    def __init__(self, num_groups: int, dim: int):
+    def __init__(self, num_groups: int, dim: int, eps: float = 1e-6):
         super().__init__()
         self.num_groups = num_groups
-        self.eps = 1e-6          # flax's default
+        self.eps = eps           # flax's default 1e-6
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
@@ -290,13 +290,15 @@ def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
 class Conv(nn.Conv2d):
     """``flax.linen.Conv`` on channels-last input ``(B, H, W, C)``: padding
     ``"SAME"`` (flax's asymmetric split) or ``"VALID"``, optional feature
-    groups (depthwise). The weight is stored OIHW, as the bridge converts
-    flax's HWIO kernel. A 1×1 stride-1 conv runs as a matrix product."""
+    groups (depthwise), optional bias. The weight is stored OIHW, as the
+    bridge converts flax's HWIO kernel. A 1×1 stride-1 conv runs as a
+    matrix product."""
 
     def __init__(self, in_features: int, out_features: int, kernel_size=1,
-                 stride=1, padding: str = "SAME", groups: int = 1):
+                 stride=1, padding: str = "SAME", groups: int = 1,
+                 bias: bool = True):
         super().__init__(in_features, out_features, kernel_size, stride,
-                         groups=groups)
+                         groups=groups, bias=bias)
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"padding {padding!r}: SAME or VALID")
         self.same = padding == "SAME"
@@ -343,18 +345,22 @@ class VisionTransformer(nn.Module):
     after each tapped block (unnormalized). The learned ``pos_embed`` (1, P
     + 1, C) is sized by ``num_patches``; ``forward`` takes another one of
     the input's grid (a resampled table) in its place. Attention runs
-    through ``flash_attention`` (K1 on the card)."""
+    through ``flash_attention`` (K1 on the card). With ``dtype=bfloat16``
+    (VGGT's DINOv2 patch embed) the blocks compute in bf16 and the residual
+    stream stays float32, as in flax: the bf16 patch tokens plus the f32
+    position table are f32; the taps are float32, the output ``dtype``."""
 
     def __init__(self, patch_size: int = 14, embed_dim: int = 1024,
                  depth: int = 24, num_heads: int = 16, mlp_ratio: float = 4.0,
                  num_register_tokens: int = 4, init_values: float = 1.0,
-                 taps: Optional[tuple] = None, num_patches: int = 1):
+                 taps: Optional[tuple] = None, num_patches: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.depth = depth
         self.init_values = init_values
         self.num_register_tokens = num_register_tokens
         self.taps = tuple(taps) if taps else None
-        self.patch_embed = PatchEmbed(patch_size, embed_dim)
+        self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.register_tokens = nn.Parameter(
             torch.zeros(1, num_register_tokens, embed_dim))
@@ -363,8 +369,8 @@ class VisionTransformer(nn.Module):
         for i in range(depth):
             setattr(self, f"block_{i}", Block(
                 embed_dim, num_heads, mlp_ratio, init_values=init_values,
-                ln_eps=1e-6))
-        self.norm = LayerNorm(embed_dim, 1e-6)
+                ln_eps=1e-6, dtype=dtype))
+        self.norm = LayerNorm(embed_dim, 1e-6, dtype)
 
     def init_weights(self, generator=None):
         """flax's initializers: LeCun-normal kernels, zero tokens, the
@@ -392,7 +398,7 @@ class VisionTransformer(nn.Module):
         for i in range(self.depth):
             x = getattr(self, f"block_{i}")(x)
             if i in want:
-                taps.append(x[:, n_prefix:])
+                taps.append(x[:, n_prefix:].to(torch.float32))
         x = self.norm(x)
         if self.taps:
             return x[:, n_prefix:], taps
@@ -433,7 +439,8 @@ def init_like_flax(module: nn.Module, generator=None) -> nn.Module:
                     m.bias.zero_()
             elif isinstance(m, nn.Conv2d):
                 lecun_normal_(m.weight, m.weight[0].numel(), generator)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
             elif isinstance(m, GroupNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()

@@ -9,9 +9,9 @@ the z-shift with the closed-form optimal focal per shift.
 :class:`MoGeFovEstimator` keeps the reference's ``run_moge`` semantics:
 per-frame pixel intrinsics with fx overridden by the vertical focal.
 
-The hub-checkpoint converter of the trunk (skix's ``convert_moge_backbone``,
-through its DINOv2 converter) is not ported: a MoGe checkpoint reaches the
-port as a skix variables npz (ROADMAP, Queue 1).
+:func:`convert_moge_backbone` maps a real MoGe-2 checkpoint's trunk through
+the DINOv2 converter (``models.vggt_convert.convert_dinov2_backbone``); the
+head's tensors are left to a per-layer map, as in skix.
 """
 
 from __future__ import annotations
@@ -242,3 +242,14 @@ class MoGeFovEstimator:
                                     [0, v_focal, H / 2],
                                     [0, 0, 1]], np.float32))
         return np.stack(Ks)
+
+
+def convert_moge_backbone(state_dict, depth: int = 24,
+                          prefix: str = "backbone.") -> dict:
+    """Real MoGe-2 checkpoint → the trunk's ``VisionTransformer`` tree
+    (skix's layout; ``convert.flax_to_state_dict`` of ``{"params": tree}``
+    loads it into ``MoGePointModel.backbone``): the MoGe backbone is a
+    DINOv2 ``DinoVisionTransformer``."""
+    from skix_torch.models.vggt_convert import convert_dinov2_backbone
+
+    return convert_dinov2_backbone(state_dict, depth, prefix=prefix)

@@ -92,9 +92,11 @@ _LOG2E = math.log2(math.e)
 # and "flash_fwd_single_tile_lse"; K3 as "flash_bwd_dkv", K4 as
 # "flash_bwd_dq", K5 as "flash_bwd_single_tile". LAUNCHES_BY_STYLE counts
 # the same launches under "<key>/<rope style>", the style one of "none",
-# "half", "interleaved" and "segments".
+# "half", "interleaved" and "segments"; LAUNCHES_BY_SHAPE under
+# "<key>/<B>x<H>x<Sq>x<D>" (q's shape).
 LAUNCHES: collections.Counter = collections.Counter()
 LAUNCHES_BY_STYLE: collections.Counter = collections.Counter()
+LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 
 _KERNEL_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -493,10 +495,11 @@ def _empty_like_heads(x):
                        device=x.device).transpose(1, 2)
 
 
-def _count(key: str, rope_cos, rope_rotate) -> None:
+def _count(key: str, rope_cos, rope_rotate, shape) -> None:
     LAUNCHES[key] += 1
     style = "none" if rope_cos is None else style_name(rope_rotate)
     LAUNCHES_BY_STYLE[f"{key}/{style}"] += 1
+    LAUNCHES_BY_SHAPE[f"{key}/{'x'.join(map(str, shape))}"] += 1
 
 
 def _rope_pass(x, cos, sin, rot, mul):
@@ -557,7 +560,8 @@ def _launch(kernel: str, q, k, v, sm_scale, fixed_max, rope_cos, rope_sin,
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: "
                            + getattr(lib, errs)(err).decode())
-    _count(kernel + ("_lse" if with_lse else ""), rope_cos, rope_rotate)
+    _count(kernel + ("_lse" if with_lse else ""), rope_cos, rope_rotate,
+           (B, H, Sq, D))
     return (o, lse) if with_lse else o
 
 
@@ -611,7 +615,7 @@ def _launch_backward(kernels, q, k, v, do, lse, di, sm_scale, rope_cos,
         if err != 0:
             raise RuntimeError(f"{kernel} launch failed: "
                                + getattr(lib, errs)(err).decode())
-        _count(kernel, rope_cos, rope_rotate)
+        _count(kernel, rope_cos, rope_rotate, (B, H, Sq, D))
     return dq, dk, dv
 
 

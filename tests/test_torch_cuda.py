@@ -545,3 +545,53 @@ def test_cuda_side_view_shapes_match_plain(cuda, shape, rope):
             q[b:b + 1], k[b:b + 1], v[b:b + 1], 1 / math.sqrt(D), **kw)
             for b in range(B)])
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,rope", [
+    ((1, 16, 41220, 64), True),    # single mode (S = 30): global blocks
+    ((30, 16, 1374, 64), True),    # single mode: frame blocks
+    ((1, 16, 30, 128), False),     # single mode: camera trunk
+    ((1, 16, 10992, 64), True),    # sfm mode (S = 8): global blocks
+    ((8, 16, 1374, 64), True),     # sfm mode: frame blocks
+    ((1, 16, 8, 128), False),      # sfm mode: camera trunk
+    ((8, 16, 1374, 64), False),    # the DINOv2 patch embed (vit)
+])
+def test_cuda_vggt_cli_shapes_match_plain(cuda, shape, rope):
+    """K1 at the vggt CLI's shapes (VGGT-1B, bf16) against the plain
+    version: the aggregator's blocks qk-normed, in fixed-max mode (bound 12)
+    with the 2D rope of the VGGT layout (5 special tokens at (0, 0), the
+    37 × 37 grid + 1, repeated per frame in the global layout); the camera
+    trunk and the DINOv2 trunk with no rope and an online max. bf16: the
+    outputs round to bf16 after f32 sums taken in another order (4e-3, and
+    one bf16 step, up to 2⁻⁷ of the value, where that is larger: the camera
+    trunk's few-token averages reach 2-3).
+    The plain version runs a head at a time at the largest shape (a 6.8 GB
+    score matrix each)."""
+    B, H, S, D = shape
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda) for _ in range(3))
+    kw = {}
+    if rope:
+        q = torch.nn.functional.layer_norm(q, (D,))
+        k = torch.nn.functional.layer_norm(k, (D,))
+        ys, xs = np.meshgrid(np.arange(37), np.arange(37), indexing="ij")
+        frame = np.concatenate([np.zeros((5, 2), np.int64),
+                                np.stack([ys.ravel(), xs.ravel()], -1) + 1])
+        pos = torch.as_tensor(np.tile(frame, (S // len(frame), 1)),
+                              device=cuda)
+        cos, sin = A.rope_2d_tables(pos, D, 100.0)
+        kw = dict(fixed_max=12.0, rope_cos=cos, rope_sin=sin)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    before = A.LAUNCHES["flash_fwd"]
+    with torch.no_grad():
+        out = A.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert A.LAUNCHES["flash_fwd"] == before + 1
+        ref = torch.cat([torch.cat([A.attention_reference(
+            q[b:b + 1, h:h + 1], k[b:b + 1, h:h + 1], v[b:b + 1, h:h + 1],
+            1 / math.sqrt(D), **kw) for h in range(H)], 1)
+            for b in range(B)])
+    assert out.dtype == torch.bfloat16 and out.shape == shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=4e-3,
+                               rtol=2 ** -7)

@@ -50,7 +50,7 @@ def _solve_last_layer(v, pair):
     from skix_torch.convert import flax_to_state_dict, load_into
     from skix_torch.models.vggt import VGGT
 
-    model = VGGT(**TINY)
+    model = VGGT(**TINY, enable_depth=False, enable_point=False)
     load_into(model, flax_to_state_dict(v))
     seen = []
     model.camera_head.pose_branch.fc2.register_forward_hook(
@@ -89,8 +89,8 @@ def records(tmp_path_factory):
     root = tmp_path_factory.mktemp("twin")
     frames = rng.integers(0, 255, (2, T, H, W, 3)).astype(np.uint8)
     v = _variables(rng)
-    pair = torch.cat([preprocess_frames(frames[0, :1], SIZE),
-                      preprocess_frames(frames[1, :1], SIZE)]).numpy()
+    pair = torch.cat([preprocess_frames(frames[0, :1], SIZE, "cpu"),
+                      preprocess_frames(frames[1, :1], SIZE, "cpu")]).numpy()
     _solve_last_layer(v, pair)
     save_checkpoint(str(root / "vggt.npz"), v)
 
@@ -213,8 +213,9 @@ def test_unported_stages_and_modes_raise(tmp_path):
            "stages": ["vggt", "prepare_dataset"], "device": "cpu"}
     with pytest.raises(NotImplementedError, match="prepare_dataset"):
         torch_run_all(cfg)
-    with pytest.raises(NotImplementedError, match="sfm slice"):
-        torch_vggt({"mode": "single", "device": "cpu",
+    # every vggt mode is ported since the sfm slice; an unknown one raises
+    with pytest.raises(ValueError, match="unknown vggt mode"):
+        torch_vggt({"mode": "stereo", "device": "cpu",
                     "paths": {"pt_root": str(tmp_path),
                               "out_root": str(tmp_path)}})
 

@@ -155,7 +155,8 @@ def test_vggt_pose_enc(vggt_variables, dtype, atol):
     smodel = full.clone(enable_depth=False, enable_point=False,
                         dtype=getattr(jnp, dtype))
     want = jax.jit(smodel.apply)(v, jnp.asarray(imgs))
-    model, extra = _port(VGGT(**kw, dtype=getattr(torch, dtype)), v)
+    model, extra = _port(VGGT(**kw, enable_depth=False, enable_point=False,
+                              dtype=getattr(torch, dtype)), v)
     assert extra and all(k.split(".")[0] in ("depth_head", "point_head")
                          for k in extra)
     with torch.no_grad():
@@ -171,11 +172,16 @@ def test_vggt_pose_enc(vggt_variables, dtype, atol):
 
 
 def test_vggt_heads_of_the_sfm_slice_raise():
+    """Since the sfm slice the heads are built (skix's defaults: both on);
+    only an unknown patch embed raises."""
     from skix_torch.models.vggt import VGGT
 
-    with pytest.raises(NotImplementedError, match="sfm slice"):
+    model = VGGT(img_size=SIZE, embed_dim=EMBED, depth=1, num_heads=HEADS,
+                 intermediate_layer_idx=(0, 0, 0, 0))
+    assert model.depth_head is not None and model.point_head is not None
+    with pytest.raises(ValueError, match="patch_embed_kind"):
         VGGT(img_size=SIZE, embed_dim=EMBED, depth=1, num_heads=HEADS,
-             enable_depth=True)
+             patch_embed_kind="hiera")
 
 
 @pytest.mark.parametrize("hw,size", [((56, 56), 28), ((60, 90), 518),
@@ -190,7 +196,7 @@ def test_preprocess_frames_matches_jax_resize(hw, size):
     from skix_torch.pipelines.vggt import _resize_weights, preprocess_frames
 
     frames = rng.integers(0, 255, (2, *hw, 3)).astype(np.uint8)
-    got = preprocess_frames(frames, size).numpy()
+    got = preprocess_frames(frames, size, device="cpu").numpy()
     exact = np.einsum("shwc,hy->sywc", frames / 255.0,
                       _resize_weights(hw[0], size).astype(np.float64))
     exact = np.einsum("sywc,wx->syxc", exact,
