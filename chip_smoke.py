@@ -109,6 +109,22 @@ Phases, one line each (the last line is the JSON verdict):
               BA full, the COLMAP text), cold, profiled, its pieces
               timed alone, then one forward of VGGT(patch_embed_kind="vit"),
               the DINOv2 ViT-L/14 patch embed, with its launches;
+7f. prep      prepare_dataset (video → records): prep_ref tiny (YOLO11-n
+              pose, seg and detect, Keypoint R-CNN, a 64-wide DPT, RAFT at
+              the CPU twin's width) on the card against the CPU, stage by
+              stage (raw heads before any NMS, detections where both made
+              the same picks, depth and flow maps, ByteTrack and selection
+              on the CPU's detections, the stage's records), each limit
+              printed; prep at configs/prepare_dataset.yaml with the skix
+              backend and bbox_model detect (YOLO11-s pose, seg, detect,
+              Keypoint R-CNN R50-FPN, the depth task 384 / 12 / 6 through K1,
+              RAFT 96 / 64 × 8 iterations, ByteTrack; seeded weights) on 2
+              videos × 64 frames of 1080p: cold (K1 launches by shape, 12 a
+              batch of 4 frames), each task warm in ms a frame, the stage
+              warm on 16 frames under torch.profiler, then run_all with stages
+              [prepare_dataset, videopose3d]; dpt_large: one warm forward of
+              the depth model at Intel/dpt-large width (1024 / 24 / 16) on 4
+              frames of 1080p (K1 at (4,16,8041,64), 24 launches);
 8. train_ref  one train_detector step of the tiny detector on the card and
               on the CPU from the same weights and batch: loss, gradients
               and updated parameters;
@@ -141,6 +157,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -714,6 +731,14 @@ def kernel_cases():
          4e-3, False, None),
         ("flash_fwd", "vggt_dinov2_patch_embed", (8, 16, 1374, 64), 1374, bf,
          None, None, 4e-3, False, None),
+        # prepare_dataset's depth task: a batch of 4 frames cropped to
+        # 1072 × 1920 (cls + 67 × 120 patches = 8041 tokens), no rope,
+        # online max, at the stage's defaults (384 / 12 / 6) and at
+        # Intel/dpt-large width (1024 / 24 / 16)
+        ("flash_fwd", "dpt_depth", (4, 6, 8041, 64), 8041, f32, None, None,
+         1e-5, False, None),
+        ("flash_fwd", "dpt_large", (4, 16, 8041, 64), 8041, f32, None, None,
+         1e-5, False, None),
     ]
 
 
@@ -3086,6 +3111,578 @@ def vggt_sfm_phase(tmp: Path, device: str = "cuda", T: int = SFM_T,
 
 
 # --------------------------------------------------------------------------
+# phase 7f: prepare_dataset (video → records)
+# --------------------------------------------------------------------------
+def seeded(model, seed: int):
+    """Draw every parameter and buffer of ``model`` from a CPU generator
+    seeded ``seed`` (kernels with variance 1/fan_in, 1-D weights near 1,
+    running variances in [0.5, 1.5], everything else small), in place: a
+    random model whose normalizations are not the identity."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if not t.is_floating_point():
+                continue
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "running_var":
+                t.copy_(0.5 + torch.rand(t.shape, generator=g))
+            elif leaf == "weight" and t.dim() >= 2:
+                t.copy_(torch.randn(t.shape, generator=g)
+                        / math.sqrt(t[0].numel()))
+            elif leaf == "weight":
+                t.copy_(1.0 + 0.05 * torch.randn(t.shape, generator=g))
+            else:
+                t.copy_(0.05 * torch.randn(t.shape, generator=g))
+    return model.eval()
+
+
+def save_skix_npz(path: Path, model) -> None:
+    """``model``'s weights as a skix checkpoint npz (flat ``params/...``
+    keys through ``convert.state_dict_to_flax``; FrozenBN's statistics stay
+    parameters), which both the port and skix load."""
+    import numpy as np
+
+    from skix_torch.convert import flatten_tree, state_dict_to_flax
+
+    stats = {k.rsplit(".", 1)[0] for k, _ in model.named_parameters()
+             if k.endswith("running_mean")}
+    frozen = {k.replace(".", "/"): np.zeros(tuple(p.shape))
+              for k, p in model.named_parameters()
+              if k.rsplit(".", 1)[0] in stats}
+    np.savez(path, **flatten_tree(state_dict_to_flax(model.state_dict(),
+                                                     frozen or None)))
+
+
+def scaled_err(got, want) -> float:
+    """max |got − want| over max(1, max |want|)."""
+    import numpy as np
+
+    got = np.asarray(got.cpu() if hasattr(got, "cpu") else got, np.float64)
+    want = np.asarray(want.cpu() if hasattr(want, "cpu") else want,
+                      np.float64)
+    if got.shape != want.shape:
+        return math.inf
+    if not want.size:
+        return 0.0
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+def _pick_check(got, want, box_field: str, tol: float):
+    """Per image: the same picks (the same valid slots, their boxes within
+    ``tol`` scaled) → (images whose picks differ, the largest scaled error
+    of every field over the images whose picks agree)."""
+    import numpy as np
+
+    differ, worst = 0, {}
+    for b in range(want.valid.shape[0]):
+        same = (bool(np.array_equal(got.valid[b].cpu().numpy(),
+                                    want.valid[b].numpy()))
+                and scaled_err(getattr(got, box_field)[b],
+                               getattr(want, box_field)[b]) <= tol)
+        if not same:
+            differ += 1
+            continue
+        for f in want._fields:
+            e = scaled_err(getattr(got, f)[b].float(),
+                           getattr(want, f)[b].float())
+            worst[f] = max(worst.get(f, 0.0), e)
+    return differ, worst
+
+
+def track_stream(seed: int, T: int = 32, N: int = 6):
+    """Synthetic detections (xyxy boxes, scores, valid): four people moving,
+    crossing, leaving and arriving, scores over ByteTrack's three bands,
+    dropped detections and clutter; and a camera pan-and-zoom as flow."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    people = [(0, T, 60, 50, 2.5, 0.5, 30, 70, 0.9),
+              (0, T - 6, 150, 60, -2.0, 0.2, 28, 66, 0.6),
+              (5, T, 20, 120, 1.0, -1.0, 26, 60, 0.2),
+              (10, T, 200, 30, -1.5, 1.5, 32, 72, 0.35)]
+    boxes = np.zeros((T, N, 4), np.float32)
+    scores = np.zeros((T, N), np.float32)
+    valid = np.zeros((T, N), bool)
+    for t in range(T):
+        slots, si = rng.permutation(N), 0
+        for (t0, t1, x0, y0, vx, vy, w, h, sc) in people:
+            if not (t0 <= t < t1) or rng.random() < 0.1:
+                continue
+            n, si = slots[si], si + 1
+            cx, cy = x0 + vx * t + rng.normal(), y0 + vy * t + rng.normal()
+            boxes[t, n] = [cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2]
+            scores[t, n] = np.clip(sc + 0.05 * rng.normal(), 0.05, 1.0)
+            valid[t, n] = True
+    ys, xs = np.mgrid[0:64, 0:96].astype(np.float32)
+    flow = []
+    for _ in range(T - 1):
+        a, b = 1.0 + 0.01 * rng.normal(), rng.normal(size=2) * 2.0
+        flow.append(np.stack([(a - 1) * xs + b[0], (a - 1) * ys + b[1]]))
+    return boxes, scores, valid, np.asarray(flow, np.float32)
+
+
+def prep_stage_cfg(videos: Path, out: Path, device: str, **over) -> dict:
+    """configs/prepare_dataset.yaml with the skix backend, the paths, the
+    device and ``over``."""
+    from skix_torch.config import load_config
+
+    cfg = load_config("prepare_dataset", config_dir=ROOT / "configs").to_dict()
+    cfg.update(backend="skix", device=device, **over)
+    cfg["paths"] = {"video_root": str(videos), "out_root": str(out)}
+    return cfg
+
+
+def prep_reference_phase(tmp: Path, device: str = "cuda"):
+    """prepare_dataset tiny (the CPU twin's sizes; the depth model 64 wide
+    over 2 heads, the kernels' head dim 32), on ``device`` against the CPU,
+    stage by stage, with the same seeded weights: YOLO11-n pose, seg and
+    detect and Keypoint R-CNN (the raw heads before any NMS within 1e-4,
+    the detections where both sides made the same picks within 1e-4, the
+    images whose picks differ counted), the DPT depth (1e-4) and RAFT
+    (1e-3) maps, ByteTrack (both modes) and the selection on the CPU's
+    detections (equal); then the stage (compact detector, depth, flow,
+    botsort) through its CLI on both (depth 1e-4, flow 1e-3, the
+    keypoints, scores and boxes 1e-4 on the frames whose picks agree,
+    at most one frame in ten differing). Every number is relative to the
+    quantity's largest element where that exceeds 1 (pixels)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from skix_torch.io.contracts import load_pt_info
+    from skix_torch.models import dpt as D
+    from skix_torch.models import keypoint_rcnn as R
+    from skix_torch.models import raft as F_
+    from skix_torch.models import yolo_pose as Y
+    from skix_torch.models.pose_detector import PoseDetector
+    from skix_torch.ops import attention as A
+    from skix_torch.perception import byte_track as BT
+    from skix_torch.perception import selection as SEL
+    from skix_torch.pipelines.prepare_dataset import main as prep_main
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(61)
+    imgs = torch.as_tensor(rng.random((4, 64, 96, 3)).astype(np.float32))
+    res, bad = {}, []
+
+    def pair(model):
+        return model, copy.deepcopy(model).to(dev)
+
+    def hold(key, err, limit):
+        res[key] = err
+        if not err <= limit:
+            bad.append(f"{key}={err} > {limit}")
+
+    # YOLO11-n pose, seg, detect: raw heads, then the decoded detections
+    kw = dict(top_k=6, score_threshold=0.3, pre_nms_k=40)
+    for kind, model, dec, box in (
+            ("pose", Y.YoloPose("n", version=11), lambda r: Y.detect(r, **kw),
+             "boxes_xyxy"),
+            ("seg", Y.YoloSeg("n", version=11),
+             lambda r: Y.detect_seg(r, **kw), "boxes_xyxy"),
+            ("detect", Y.YoloDetect("n", num_classes=80, version=11),
+             lambda r: Y.detect_boxes(r, classes=(0,), **kw), "boxes_xyxy")):
+        cpu, card = pair(seeded(model, 5))
+        with torch.no_grad():
+            want, got = cpu(imgs), card(imgs.to(dev))
+        hold(f"yolo_{kind}_raw", max(scaled_err(getattr(got, f),
+                                                getattr(want, f))
+                                     for f in want._fields), 1e-4)
+        want_dets = dec(want)
+        differ, worst = _pick_check(dec(got), want_dets, box, 1e-3)
+        res[f"yolo_{kind}_detections"] = int(want_dets.valid.sum())
+        res[f"yolo_{kind}_images_picks_differ"] = differ
+        hold(f"yolo_{kind}_dets", max(worst.values(), default=0.0), 1e-4)
+        if differ > 1:
+            bad.append(f"yolo_{kind}: {differ} of 4 images picked otherwise")
+
+    # Keypoint R-CNN R50-FPN: raw RPN heads, then the detections
+    rk = dict(pre_nms_topk=32, post_nms_topk=8, detections=4,
+              score_threshold=0.3)
+    cpu, card = pair(seeded(R.KeypointRCNN(**rk), 6))
+    with torch.no_grad():
+        want_raw, got_raw = cpu.raw_heads(imgs), card.raw_heads(imgs.to(dev))
+        want, got = cpu(imgs), card(imgs.to(dev))
+    hold("rcnn_rpn_raw", max(scaled_err(g, w) for gr, wr in
+                             zip(got_raw, want_raw)
+                             for g, w in zip(gr.rpn_logits + gr.rpn_deltas,
+                                             wr.rpn_logits + wr.rpn_deltas)),
+         1e-4)
+    differ, worst = _pick_check(got, want, "boxes_xyxy", 1e-3)
+    res["rcnn_detections"] = int(want.valid.sum())
+    res["rcnn_images_picks_differ"] = differ
+    hold("rcnn_dets", max(worst.values(), default=0.0), 1e-4)
+    if differ > 1:
+        bad.append(f"rcnn: {differ} of 4 images picked otherwise")
+    del cpu, card
+
+    # DPT depth through the attention path (K1 on the card), RAFT
+    dk = dict(patch_size=16, embed_dim=64, depth=4, num_heads=2,
+              taps=(0, 1, 2, 3), features=16, image_hw=(64, 96))
+    cpu, card = pair(seeded(D.MonocularDepth(**dk), 7))
+    reset_counts()
+    with torch.no_grad():
+        want, got = cpu(imgs), card(imgs.to(dev))
+    res["depth_k1_launches"] = dict(A.LAUNCHES)
+    hold("depth", scaled_err(got, want), 1e-4)
+    fk = dict(hidden=32, context=32, corr_levels=3, corr_radius=3, iters=2)
+    cpu, card = pair(seeded(F_.RAFT(**fk), 8))
+    with torch.no_grad():
+        want = cpu(imgs[:2], imgs[2:])
+        got = card(imgs[:2].to(dev), imgs[2:].to(dev))
+    hold("flow", scaled_err(got, want), 1e-3)
+
+    # the card's tracker and selection given the CPU's detections
+    boxes, scores, valid, flow = track_stream(62)
+    gy, gx = BT.motion_grid(64, 96)
+    pts = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+    samples = np.ascontiguousarray(
+        flow[:, :, gy, gx].reshape(len(flow), 2, -1).transpose(0, 2, 1))
+    cfg = BT.ByteTrackConfig(max_tracks=8)
+    ids_equal = True
+    for on in (torch.device("cpu"), dev):
+        motion = BT.fit_global_motion(torch.as_tensor(pts, device=on),
+                                      torch.as_tensor(samples, device=on))
+        ids = [BT.track_sequence_ids(torch.as_tensor(boxes, device=on),
+                                     torch.as_tensor(scores, device=on),
+                                     torch.as_tensor(valid, device=on), cfg,
+                                     motion=m).cpu().numpy()
+               for m in (None, motion)]
+        cx = torch.as_tensor(np.concatenate(
+            [(boxes[..., :2] + boxes[..., 2:]) / 2,
+             boxes[..., 2:] - boxes[..., :2]], -1), device=on)
+        sel = SEL.select_person_sequence(
+            cx, torch.zeros((*boxes.shape[:2], 17, 3), device=on),
+            det_valid=torch.as_tensor(valid, device=on),
+            track_ids=torch.as_tensor(ids[0], device=on))
+        picks = (sel.sel_idx.cpu().numpy(), SEL.fill_invalid_frames(
+            sel.boxes, sel.valid).cpu().numpy())
+        if on.type == "cpu":
+            ref = (ids, picks)
+        else:
+            ids_equal = (all(np.array_equal(a, b) for a, b in zip(ids, ref[0]))
+                         and np.array_equal(picks[0], ref[1][0])
+                         and np.array_equal(picks[1], ref[1][1]))
+    res["track_ids_and_picks_equal"] = ids_equal
+    res["track_ids_emitted"] = int((ref[0][0] >= 0).sum())
+    if not ids_equal:
+        bad.append("the card's tracker or selection differs on the CPU's "
+                   "detections")
+
+    # the stage through its CLI, card and CPU, the same checkpoints
+    root = tmp / "prep_ref"
+    for i in range(2):
+        write_clip(root / "videos" / "p01" / f"osmo_{i + 1}.mp4", 8, (64, 96),
+                   seed=63 + i, drift=(2, 1))
+    ck = root / "ckpt"
+    ck.mkdir(parents=True, exist_ok=True)
+    save_skix_npz(ck / "det.npz", seeded(PoseDetector(width=16, depth=1), 9))
+    save_skix_npz(ck / "depth.npz", seeded(D.MonocularDepth(**dk), 10))
+    save_skix_npz(ck / "flow.npz", seeded(F_.RAFT(**fk), 11))
+    over = dict(pose_model="compact", d2_model="none",
+                tasks=["pose", "depth", "optical_flow"], detector_width=16,
+                detector_depth=1, detector_checkpoint=str(ck / "det.npz"),
+                top_k=4, score_threshold=0.45, det_batch=4, depth_dim=64,
+                depth_layers=4, depth_heads=2, depth_features=16,
+                depth_batch=4, depth_checkpoint=str(ck / "depth.npz"),
+                flow_hidden=32, flow_context=32, flow_iters=2,
+                flow_checkpoint=str(ck / "flow.npz"),
+                bytetrack={"tracker_type": "botsort", "max_tracks": 8})
+    for side in ("cpu", device):
+        prep_main(prep_stage_cfg(root / "videos", root / side, side, **over))
+    frames_differ, frames = 0, 0
+    for i in range(2):
+        name = f"p01/osmo_{i + 1}.npz"
+        if not ((root / "cpu" / name).exists()
+                and (root / device / name).exists()):
+            fail(f"prep_ref: {name} missing (a video failed: see the log)")
+        a, b = load_pt_info(root / "cpu" / name), load_pt_info(
+            root / device / name)
+        hold(f"stage_depth_{i}", scaled_err(b.depth, a.depth), 1e-4)
+        hold(f"stage_flow_{i}", scaled_err(b.optical_flow, a.optical_flow),
+             1e-3)
+        for t in range(a.frame_count):
+            frames += 1
+            errs = [scaled_err(getattr(b, f)[t], getattr(a, f)[t])
+                    for f in ("yolo_keypoints", "yolo_keypoints_score",
+                              "yolo_bbox")]
+            if max(errs) > 1e-4:
+                frames_differ += 1
+        if not np.array_equal(a.none_index, b.none_index):
+            frames_differ += 1
+    res["stage_frames_picks_differ"] = f"{frames_differ}/{frames}"
+    if frames_differ * 10 > frames:
+        bad.append(f"stage: {frames_differ} of {frames} frames differ")
+    from skix_torch.pipelines import prepare_dataset as PD
+
+    PD._MODELS.clear()
+    say("prep_ref", **{k: (json.dumps(v).replace(" ", "")
+                           if isinstance(v, dict) else v)
+                       for k, v in res.items()})
+    if device == "cuda" and res["depth_k1_launches"] != {"flash_fwd": 4}:
+        bad.append(f"depth launches {res['depth_k1_launches']}, expected "
+                   "4 flash_fwd")
+    if bad:
+        fail("prep_ref: " + "; ".join(bad))
+
+
+PREP_T, PREP_HW = 64, (1080, 1920)   # 2 videos × 64 frames (a 30 s clip
+#                                      is 900): the cut is frames per video
+PREP_OVER = dict(bbox_model="detect")   # the yaml's tasks + the detect run
+
+
+def _prep_records_ok(out: Path, T: int, hw, phase: str) -> None:
+    import numpy as np
+
+    from skix_torch.io.contracts import load_pt_info
+
+    H, W = hw
+    for i in range(2):
+        p = out / "p01" / f"osmo_{i + 1}.npz"
+        if not p.exists():
+            fail(f"{phase}: no {p.name} (a video failed: see the log)")
+        r = load_pt_info(p)
+        shapes = {"depth": (T, 1, H, W), "optical_flow": (T - 1, 2, H, W),
+                  "yolo_mask": (T, 1, H, W), "yolo_keypoints": (T, 17, 3),
+                  "d2_keypoints": (T, 17, 3), "yolo_bbox": (T, 4),
+                  "d2_bbox": (T, 4)}
+        for k, shape in shapes.items():
+            a = getattr(r, k)
+            if a is None or a.shape != shape or not np.isfinite(a).all():
+                fail(f"{phase}: {p.name} {k} is "
+                     f"{None if a is None else a.shape}, not finite {shape}")
+
+
+def prep_phase(tmp: Path, device: str = "cuda", T: int = PREP_T,
+               hw=PREP_HW, **over):
+    """prepare_dataset at configs/prepare_dataset.yaml with the skix
+    backend and ``bbox_model: detect`` (YOLO11-s pose, seg and detect,
+    Keypoint R-CNN R50-FPN, the DPT depth task at the stage's defaults 384
+    / 12 / 6 through K1, RAFT 96 / 64 with 8 iterations, ByteTrack; seeded
+    weights) on 2 videos × 64 frames of 1080p in one person directory:
+    cold (K1 launches by shape: 12 a batch of 4 frames), every record
+    checked; each task warm on a quarter of one video's frames, ms a frame;
+    the stage warm on the same frames under torch.profiler (device activity:
+    busy, idle, K1's share);
+    then run_all with ``stages: [prepare_dataset, videopose3d]`` on the
+    same videos (the stage at run_all's keys: the compact detector) and the
+    records and the lifter's output checked. ``device``, ``T``, ``hw`` and
+    ``over`` serve a small dry run on the CPU."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from skix_torch.io.video import read_video
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines import prepare_dataset as PD
+    from skix_torch.pipelines.run_all import main as run_all
+
+    root = tmp / "prep"
+    videos = root / "videos"
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    for i in range(2):
+        write_clip(videos / "p01" / f"osmo_{i + 1}.mp4", T, hw, seed=71 + i,
+                   drift=(4 - i, 1 + i))
+    setup_s = time.perf_counter() - t0
+    cfg = lambda out: prep_stage_cfg(videos, out, device,  # noqa: E731
+                                     **{**PREP_OVER, **over})
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    PD.main(cfg(root / "cold"))
+    sync()
+    cold_s = time.perf_counter() - t0
+    launches, by_style = dict(A.LAUNCHES), dict(A.LAUNCHES_BY_STYLE)
+    by_shape = dict(A.LAUNCHES_BY_SHAPE)
+    peak = (round(torch.cuda.max_memory_allocated() / 2 ** 30, 3)
+            if on_card else "not measured")
+    _prep_records_ok(root / "cold", T, hw, "prep")
+    c = cfg(root / "cold")
+    dd, nh = int(c.get("depth_dim", 384)), int(c.get("depth_heads", 6))
+    layers, batch = int(c.get("depth_layers", 12)), int(c.get("depth_batch",
+                                                              4))
+    tokens = (hw[0] // 16) * (hw[1] // 16) + 1
+    expected = {f"flash_fwd/{batch}x{nh}x{tokens}x{dd // nh}":
+                2 * layers * -(-T // batch)}
+    say("prep", videos=2, frames=2 * T, cold_wall_s=round(cold_s, 3),
+        cold_ms_per_frame=round(cold_s / (2 * T) * 1e3, 2),
+        clips_setup_s=round(setup_s, 3), peak_mem_gib=peak,
+        launches=json.dumps(launches).replace(" ", ""),
+        launches_by_shape=json.dumps(by_shape).replace(" ", ""),
+        expected=json.dumps(expected).replace(" ", ""))
+    if on_card and (by_shape != expected or launches != {
+            "flash_fwd": sum(expected.values())}):
+        fail(f"prep: launches {launches} by shape {by_shape}, expected "
+             f"{expected}")
+    shutil.rmtree(root / "cold")
+
+    # each task warm on the first quarter of one video (the models built by
+    # the cold run), ms a frame
+    dev = torch.device(device)
+    n = max(T // 4, 2)
+    t0 = time.perf_counter()
+    frames = read_video(videos / "p01" / "osmo_1.mp4", max_frames=n)
+    decode_s = time.perf_counter() - t0
+    fd = torch.as_tensor(frames, device=dev)
+    ms = {"decode": decode_s * 1e3 / n}
+
+    def timed(name, fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        ms[name] = (time.perf_counter() - t) * 1e3 / n
+        return out
+
+    with torch.no_grad():
+        bx, kp, vl, sc = timed("yolo_pose", lambda: PD._detect_clip_yolo(
+            c, fd, dev))
+        timed("yolo_detect", lambda: PD._detect_clip_boxes(c, fd, dev))
+        sb, sm, sv, _ = timed("yolo_seg", lambda: PD._detect_clip_seg(
+            c, fd, dev))
+        timed("rcnn", lambda: PD._detect_clip_rcnn(c, fd, dev))
+        timed("depth", lambda: PD._depth_task(c, fd, dev))
+        flow = timed("flow", lambda: PD._flow_task(c, fd, dev))
+        tid = timed("track", lambda: PD._compute_track_ids(
+            c, bx, sc, vl, flow=flow, device=dev))
+        timed("select", lambda: PD._select_and_fill(
+            {"boxes": bx, "keypoints": kp, "det_valid": vl,
+             "track_ids": tid}, dev))
+        timed("mask", lambda: PD._assemble_person_mask(
+            {"seg_boxes": sb, "seg_masks": sm, "seg_valid": sv}, *hw, dev))
+    del fd, flow
+    say("prep_tasks", frames=n, **{f"{k}_ms_per_frame": round(v, 3)
+                                   for k, v in ms.items()})
+
+    if on_card:
+        # the stage warm on the same frames of one of the two videos, under
+        # the profiler (its aggregation grows with the kernels launched)
+        one = root / "videos_one" / "p01"
+        one.mkdir(parents=True)
+        (one / "osmo_1.mp4").symlink_to(videos / "p01" / "osmo_1.mp4")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            PD.main(prep_stage_cfg(root / "videos_one", root / "prof",
+                                   device, max_frames=n,
+                                   **{**PREP_OVER, **over}))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        k1_ms = sum(e.self_device_time_total for e in kernels
+                    if "flash_fwd_kernel" in e.key) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+        say("prep_profile", videos=1, frames=n,
+            warm_wall_s=round(wall_ms / 1e3, 3),
+            warm_ms_per_frame=round(wall_ms / n, 2),
+            device_busy_ms=round(busy_ms, 2),
+            device_idle_share=round(1.0 - busy_ms / wall_ms, 4),
+            k1_ms=round(k1_ms, 2), k1_busy_share=round(k1_ms / busy_ms, 4),
+            kernels_launched=sum(e.count for e in kernels))
+        say("prep_profile_top", kernels=json.dumps(
+            [[e.key[:60], round(e.self_device_time_total / 1e3, 2), e.count]
+             for e in top]).replace(" ", ""))
+        shutil.rmtree(root / "prof")
+    PD._MODELS.clear()          # the stage's models, kept across videos
+
+    # run_all's first stage, then the lifter, on the same videos
+    work = root / "run_all"
+    t0 = time.perf_counter()
+    run_all({"paths": {"video_root": str(videos), "pt_root": str(work / "pt"),
+                       "work_root": str(work / "work")},
+             "stages": ["prepare_dataset", "videopose3d"], "backend": "skix",
+             "device": device})
+    sync()
+    ra_s = time.perf_counter() - t0
+    from skix_torch.io.contracts import load_pt_info
+
+    for i in range(2):
+        r = load_pt_info(work / "pt" / "p01" / f"osmo_{i + 1}.npz")
+        if r.yolo_keypoints.shape != (T, 17, 3) or not np.isfinite(
+                r.yolo_keypoints).all():
+            fail(f"prep_run_all: record {i + 1} is not T finite keypoints")
+    summary = json.loads((work / "work" / "videopose3d" / "summary.json")
+                         .read_text())
+    lifted = sorted((work / "work" / "videopose3d" / "p01").glob("*.npy"))
+    if "p01" not in summary or not lifted or not all(
+            np.isfinite(np.load(p)).all() for p in lifted):
+        fail(f"prep_run_all: the lifter wrote {summary}, {lifted}")
+    timing = json.loads((work / "work" / "pipeline_timing.json").read_text())
+    say("prep_run_all", wall_s=round(ra_s, 3),
+        prepare_dataset_s=round(timing["prepare_dataset"]["total_s"], 3),
+        videopose3d_s=round(timing["videopose3d"]["total_s"], 3),
+        lifted=len(lifted))
+    PD._MODELS.clear()
+    shutil.rmtree(root)
+    return launches, by_style
+
+
+def dpt_large_phase(tmp: Path, device: str = "cuda", hw=PREP_HW, B: int = 4,
+                    **width):
+    """One warm ``MonocularDepth`` forward at Intel/dpt-large width (1024
+    wide, 24 blocks of 16 heads, taps 5/11/17/23, seeded weights) on 4
+    frames of 1080p cropped to /16: K1 at (4,16,8041,64), 24 launches a
+    forward; ``width`` and ``hw`` serve a small dry run on the CPU."""
+    import numpy as np
+    import torch
+
+    from skix_torch.models.dpt import MonocularDepth
+    from skix_torch.ops import attention as A
+
+    H, W = (hw[0] // 16) * 16, (hw[1] // 16) * 16
+    kw = dict(embed_dim=1024, depth=24, num_heads=16, taps=(5, 11, 17, 23),
+              features=256)
+    kw.update(width)
+    model = seeded(MonocularDepth(image_hw=(H, W), **kw), 81).to(device)
+    rng = np.random.default_rng(82)
+    x = torch.as_tensor(rng.random((B, H, W, 3)).astype(np.float32),
+                        device=device)
+    on_card = device == "cuda"
+    with torch.no_grad():
+        model(x)                                   # cold
+        if on_card:
+            torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        d = model(x)
+        if on_card:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    by_shape = dict(A.LAUNCHES_BY_SHAPE)
+    nh = kw["num_heads"]
+    tokens = (H // 16) * (W // 16) + 1
+    expected = {f"flash_fwd/{B}x{nh}x{tokens}x{kw['embed_dim'] // nh}":
+                kw["depth"]}
+    say("dpt_large", frames=B, warm_forward_ms=round(ms, 2),
+        ms_per_frame=round(ms / B, 2), launches_by_shape=json.dumps(
+            by_shape).replace(" ", ""))
+    if d.shape != (B, H, W) or not bool(torch.isfinite(d).all()):
+        fail(f"dpt_large: depth {tuple(d.shape)} not finite {(B, H, W)}")
+    if on_card and by_shape != expected:
+        fail(f"dpt_large: launches {by_shape}, expected {expected}")
+    launches, by_style = dict(A.LAUNCHES), dict(A.LAUNCHES_BY_STYLE)
+    del model, x, d
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, by_style
+
+
+# --------------------------------------------------------------------------
 # phase 8: one training step of the tiny detector, card against CPU
 # --------------------------------------------------------------------------
 def write_coco(root: Path, n: int, hw, seed: int) -> Path:
@@ -3508,6 +4105,14 @@ def main() -> int:
         vggt_reference_phase(tmp)
         paths["vggt_single"] = vggt_single_phase(tmp)
         paths["vggt_sfm"], paths["vggt_vit"] = vggt_sfm_phase(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 7f. prepare_dataset: tiny, card against CPU stage by stage; at the
+        # published widths on 2 × 64 frames of 1080p, per task, profiled,
+        # and through run_all; the DPT at Intel/dpt-large width
+        prep_reference_phase(tmp)
+        paths["prep"] = prep_phase(tmp)
+        paths["dpt_large"] = dpt_large_phase(tmp)
         gc.collect()
         torch.cuda.empty_cache()
         # 8. one training step, tiny, card against CPU

@@ -18,7 +18,9 @@ per leaf, not a name table:
   ``query``, ``key``, ``value``, ``out``;
 - a BatchNorm's ``batch_stats`` ``mean`` and ``var`` become the
   ``running_mean`` and ``running_var`` buffers of the same module (its
-  ``params`` ``scale``/``bias`` take the LayerNorm rule);
+  ``params`` ``scale``/``bias`` take the LayerNorm rule); a FrozenBatchNorm
+  keeps its four ``params`` (``weight``, ``bias``, ``running_mean``,
+  ``running_var``) under their names;
 - a LayerNorm or GroupNorm ``scale`` becomes ``weight``; ``bias`` stays
   ``bias``;
 - an Embed's ``embedding`` (vocab, width) becomes the ``weight`` of an
@@ -180,7 +182,9 @@ def state_dict_to_flax(state_dict: Mapping[str, Any],
     :func:`flax_to_state_dict`. ``template`` (a flax tree, nested or flat
     ``"a/b/kernel"`` keys, with or without the ``params`` level) gives the
     shapes of DenseGeneral leaves; a leaf whose element count matches is
-    reshaped to it."""
+    reshaped to it. A leaf whose torch name the template holds as it is
+    (FrozenBatchNorm's ``weight``, ``bias``, ``running_mean`` and
+    ``running_var``, all ``params`` in skix) is copied under that name."""
     shapes = {}
     if template is not None:
         flat = flatten_tree(template)
@@ -196,15 +200,18 @@ def state_dict_to_flax(state_dict: Mapping[str, Any],
         arr = (value.detach().to("cpu", torch.float32).numpy()
                if isinstance(value, torch.Tensor)
                else np.asarray(value, np.float32))
-        if parts[-1] in stat_names:
+        if "/".join(parts) in shapes:       # a leaf the template names
+            path = parts                      # as torch does (FrozenBN)
+        elif parts[-1] in stat_names:
             node = stats
             for part in parts[:-1]:
                 node = node.setdefault(part, {})
             node[stat_names[parts[-1]]] = np.array(arr, np.float32)
             continue
-        leaf, arr = flax_leaf(parts[-1], arr,
-                              parts[-2] if len(parts) > 1 else "")
-        path = parts[:-1] + [leaf]
+        else:
+            leaf, arr = flax_leaf(parts[-1], arr,
+                                  parts[-2] if len(parts) > 1 else "")
+            path = parts[:-1] + [leaf]
         want = shapes.get("/".join(path))
         if want is not None and tuple(want) != arr.shape:
             if int(np.prod(want)) != arr.size:

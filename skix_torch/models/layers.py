@@ -289,19 +289,21 @@ def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
 
 class Conv(nn.Conv2d):
     """``flax.linen.Conv`` on channels-last input ``(B, H, W, C)``: padding
-    ``"SAME"`` (flax's asymmetric split) or ``"VALID"``, optional feature
-    groups (depthwise), optional bias. The weight is stored OIHW, as the
+    ``"SAME"`` (flax's asymmetric split), ``"VALID"`` or an int p (flax's
+    explicit ``[(p, p), (p, p)]``), optional feature groups (depthwise),
+    optional bias. The weight is stored OIHW, as the
     bridge converts flax's HWIO kernel. A 1×1 stride-1 conv runs as a
     matrix product."""
 
     def __init__(self, in_features: int, out_features: int, kernel_size=1,
-                 stride=1, padding: str = "SAME", groups: int = 1,
+                 stride=1, padding="SAME", groups: int = 1,
                  bias: bool = True):
         super().__init__(in_features, out_features, kernel_size, stride,
                          groups=groups, bias=bias)
-        if padding not in ("SAME", "VALID"):
-            raise ValueError(f"padding {padding!r}: SAME or VALID")
+        if padding not in ("SAME", "VALID") and not isinstance(padding, int):
+            raise ValueError(f"padding {padding!r}: SAME, VALID or an int")
         self.same = padding == "SAME"
+        self.explicit = padding if isinstance(padding, int) else 0
 
     def forward(self, x):
         (kh, kw), (sh, sw) = self.kernel_size, self.stride
@@ -312,26 +314,39 @@ class Conv(nn.Conv2d):
             ph = _same_pads(xn.shape[2], kh, sh)
             pw = _same_pads(xn.shape[3], kw, sw)
             xn = F.pad(xn, (*pw, *ph))
-        y = F.conv2d(xn, self.weight, self.bias, self.stride, 0, 1,
-                     self.groups)
+        y = F.conv2d(xn, self.weight, self.bias, self.stride, self.explicit,
+                     1, self.groups)
         return y.permute(0, 2, 3, 1)
 
 
 class ConvTranspose(nn.Conv2d):
-    """``flax.linen.ConvTranspose`` with kernel == stride (``SAME``), on
-    channels-last input: every input pixel writes one k×k output patch.
-    flax does not flip the kernel (``transpose_kernel=False``), so output
-    offset ``a`` of a patch takes kernel tap ``k−1−a``: the weight (stored
-    OIHW by the bridge's conv rule) is used flipped in space. Computed as
-    one f32 product, with no cuDNN convolution."""
+    """``flax.linen.ConvTranspose`` on channels-last input. With kernel ==
+    stride (``SAME``, the default) every input pixel writes one k×k output
+    patch. flax does not flip the kernel (``transpose_kernel=False``), so
+    output offset ``a`` of a patch takes kernel tap ``k−1−a``: the weight
+    (stored OIHW by the bridge's conv rule) is used flipped in space,
+    computed as one f32 product, with no cuDNN convolution. With
+    ``stride`` and a symmetric explicit ``padding`` p (flax's
+    ``padding=[(p, p), (p, p)]``: the stride-dilated input padded by p and
+    correlated with the kernel) it is torch's transposed convolution of
+    the flipped kernel with padding k − 1 − p."""
 
-    def __init__(self, in_features: int, out_features: int, kernel_size=2):
+    def __init__(self, in_features: int, out_features: int, kernel_size=2,
+                 stride: Optional[int] = None, padding: Optional[int] = None):
         super().__init__(in_features, out_features, kernel_size,
-                         stride=kernel_size)
+                         stride=kernel_size if stride is None else stride)
+        self.explicit = padding
+        if padding is not None and padding > kernel_size - 1:
+            raise ValueError(f"padding {padding} > kernel {kernel_size} - 1")
 
     def forward(self, x):
-        B, h, w, _ = x.shape
         kh, kw = self.kernel_size
+        if self.explicit is not None:
+            w = self.weight.transpose(0, 1).flip(2, 3)
+            y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, self.bias,
+                                   self.stride, kh - 1 - self.explicit)
+            return y.permute(0, 2, 3, 1)
+        B, h, w, _ = x.shape
         y = torch.einsum("bijc,ocuv->biujvo", x, self.weight.flip(2, 3))
         return y.reshape(B, h * kh, w * kw, -1) + self.bias
 

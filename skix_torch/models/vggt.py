@@ -34,6 +34,7 @@ from skix_torch.models.layers import (Block, Conv, ConvTranspose, Dense,
                                       make_grid_positions)
 from skix_torch.ops.attention import rope_2d_tables
 from skix_torch.utils.device import constant, full_float32_convs
+from skix_torch.utils.image import resize
 
 _RESNET_MEAN = (0.485, 0.456, 0.406)
 _RESNET_STD = (0.229, 0.224, 0.225)
@@ -287,27 +288,37 @@ def _resize_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
 
 
 class _FusionBlock(nn.Module):
-    """VGGT's FeatureFusionBlock: residual add → res_unit2 → align-corners
+    """The DPT FeatureFusionBlock: residual add → res_unit2 → align-corners
     resize to the next level's size (``out_size``; ×2 when None) →
-    ``out_conv``. The residual unit's in-place ReLU makes its skip add
-    ``relu(h)``, as in skix's default dialect."""
+    ``out_conv``. Two dialects differ in the residual skip, as in skix:
+    VGGT's (the default), whose in-place ReLU makes the skip add
+    ``relu(h)``; and HF transformers' DPT (``hf=True``, the depth model's;
+    skix's ``preact_residual`` and ``align_residual`` together), whose skip
+    adds the pre-activation ``h`` and which resizes a residual of another
+    size to the hidden state's (jax's half-pixel bilinear, torch's
+    ``align_corners=False``) before the add."""
 
-    def __init__(self, features: int, has_residual: bool = True):
+    def __init__(self, features: int, has_residual: bool = True,
+                 hf: bool = False):
         super().__init__()
         units = ("res_unit1", "res_unit2") if has_residual else ("res_unit2",)
         for u in units:
             setattr(self, f"{u}_conv1", Conv(features, features, 3))
             setattr(self, f"{u}_conv2", Conv(features, features, 3))
         self.has_residual = has_residual
+        self.hf = hf
         self.out_conv = Conv(features, features, 1)
 
     def _res_unit(self, h, name):
         a = F.relu(h)
         out = F.relu(getattr(self, f"{name}_conv1")(a))
-        return a + getattr(self, f"{name}_conv2")(out)
+        return (h if self.hf else a) + getattr(self, f"{name}_conv2")(out)
 
     def forward(self, x, res=None, out_size=None):
         if self.has_residual and res is not None:
+            if self.hf and res.shape[1:3] != x.shape[1:3]:
+                res = resize(res, (res.shape[0], *x.shape[1:3],
+                                   res.shape[-1]), "bilinear")
             x = x + self._res_unit(res, "res_unit1")
         x = self._res_unit(x, "res_unit2")
         H, W = x.shape[1], x.shape[2]

@@ -1,8 +1,8 @@
 """Stage CLI: the pipeline orchestrator with per-stage timing.
 
-Port of ``skix/pipelines/run_all.py``. Ported stages, run in skix's order
+Port of ``skix/pipelines/run_all.py``. Its stages, run in skix's order
 over one dataset root, each into the directory skix uses under
-``work_root``: ``videopose3d`` (``videopose3d/``), ``triangulation``
+``work_root`` (``prepare_dataset`` into ``paths.pt_root``): ``videopose3d`` (``videopose3d/``), ``triangulation``
 (``joints_3d/``), ``vggt`` (``vggt/``), ``bundle_adjustment`` (``ba/``,
 skipped with a warning when ``joints_3d`` does not exist),
 ``sam3d_body`` (``sam3d/``, run only when ``paths.sam3d_root`` is unset,
@@ -29,8 +29,13 @@ config as an in-memory mapping (skix writes it to
 ``generated_configs/<stage>.yaml`` first), so a run whose own config is a
 mapping needs no PyYAML.
 
-A requested stage that is not ported yet (``prepare_dataset``) raises
-``NotImplementedError`` naming it; nothing is skipped silently. ``device``
+``prepare_dataset`` runs first when requested, as in skix: videos from
+``paths.video_root`` (required) into ``paths.pt_root`` with skix's keys
+``backend`` (default ``precomputed``) and ``store_frames``; every other
+key of the stage keeps the stage's default (skix passes no others).
+
+Every run_all stage of skix is ported; a stage name run_all does not know
+raises ``ValueError`` naming it (nothing is skipped silently). ``device``
 (default ``cuda``) selects where the stages run.
 """
 
@@ -46,9 +51,9 @@ from skix_torch.utils.profiling import StageTimer
 
 log = logging.getLogger(__name__)
 
-PORTED_STAGES = ("videopose3d", "triangulation", "vggt", "bundle_adjustment",
-                 "sam3d_body", "fuse", "prepare_front_results", "front_side",
-                 "angle", "metrics")
+PORTED_STAGES = ("prepare_dataset", "videopose3d", "triangulation", "vggt",
+                 "bundle_adjustment", "sam3d_body", "fuse",
+                 "prepare_front_results", "front_side", "angle", "metrics")
 DEFAULT_STAGES = ["videopose3d", "triangulation", "bundle_adjustment", "fuse",
                   "angle", "metrics"]
 
@@ -64,16 +69,29 @@ def main(cfg):
     work = Path(cfg.paths.work_root)
     pt_root = Path(cfg.paths.pt_root)
     stages = list(cfg.get("stages", DEFAULT_STAGES))
-    missing = [s for s in stages if s not in PORTED_STAGES]
-    if missing:
-        raise NotImplementedError(
-            f"run_all stages {missing} are not ported to skix_torch yet "
-            f"(ported: {list(PORTED_STAGES)}); run them with skix.pipelines."
-            "run_all")
+    unknown = [s for s in stages if s not in PORTED_STAGES]
+    if unknown:
+        raise ValueError(f"unknown run_all stages {unknown} (stages: "
+                         f"{list(PORTED_STAGES)})")
     device = str(cfg.get("device", "cuda"))
     sync = resolve_device(device).type == "cuda"
     timer = StageTimer()
     summary = {}
+
+    if "prepare_dataset" in stages:
+        from skix_torch.pipelines.prepare_dataset import main as prep
+
+        video_root = cfg.paths.get("video_root")
+        if not video_root:
+            # the shipped default is null — str(None) would scan './None'
+            raise ValueError("run_all with the prepare_dataset stage needs "
+                             "paths.video_root set")
+        with timer.span("prepare_dataset", sync):
+            prep({"paths": {"video_root": str(video_root),
+                            "out_root": str(pt_root)},
+                  "backend": str(cfg.get("backend", "precomputed")),
+                  "store_frames": bool(cfg.get("store_frames", False)),
+                  "device": device})
 
     if "videopose3d" in stages:
         from skix_torch.pipelines.videopose3d import main as vp3d

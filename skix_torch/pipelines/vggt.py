@@ -312,7 +312,7 @@ def _load_superpoint(ckpt, device):
                           device)
 
 
-def _load_aliked(ckpt, model_name="aliked-n16", device="cpu"):
+def _load_aliked(ckpt, model_name, device):
     """The port's ``ALIKED`` backbone from a lightglue-layout checkpoint, or
     None without one."""
     if not ckpt or not Path(ckpt).exists():

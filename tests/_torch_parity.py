@@ -3,8 +3,23 @@
 import functools
 
 import numpy as np
+import torch
 
 import jax
+
+# One compute thread a test process. Tier-1 runs 6 pytest-xdist workers on
+# the machine's cores; torch's OpenMP pool and numpy's OpenBLAS pool (one
+# thread a core each, in every worker) oversubscribe them about 6×, and
+# the spinning threads slow every worker, JAX's compiles included. Every
+# worker imports this module when it collects the port's test files,
+# before any test runs.
+torch.set_num_threads(1)
+try:
+    from threadpoolctl import threadpool_limits
+
+    threadpool_limits(1)
+except ImportError:       # numpy's pool keeps its size
+    pass
 
 
 def random_variables(module, rng, *inputs, **init_kw):
@@ -170,3 +185,50 @@ def assert_sam3d_outputs_close(got, want, tol=1e-4):
         close_scaled(getattr(got.mhr, name), getattr(want.mhr, name), tol)
     for name in ("cam_t", "joints_3d", "joints_2d_crop", "vertices_3d"):
         close_scaled(getattr(got, name), getattr(want, name), tol)
+
+
+def port_variables(module, seed: int):
+    """Draw every parameter and buffer of the port's ``module`` from a numpy
+    generator seeded ``seed`` (kernels with variance 1/fan_in, 1-D weights
+    near 1, running variances in [0.5, 1.5], everything else small but
+    non-zero), load them, and return the same values as skix's variables
+    (``convert.state_dict_to_flax``): no flax ``init`` is traced, so a file
+    compiles each skix model once, for its apply."""
+    import torch
+
+    from skix_torch.convert import state_dict_to_flax
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, t in module.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            sd[name] = t
+            continue
+        noise = rng.standard_normal(tuple(t.shape), dtype=np.float32)
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "running_var":
+            arr = rng.uniform(0.5, 1.5, size=tuple(t.shape))
+        elif leaf == "weight" and t.dim() >= 2:
+            arr = noise / np.sqrt(np.prod(t.shape[1:]))
+        elif leaf == "weight":
+            arr = 1.0 + 0.05 * noise
+        else:
+            arr = 0.05 * noise
+        sd[name] = torch.as_tensor(np.asarray(arr, np.float32))
+    module.load_state_dict(sd)
+    # statistics held as parameters (FrozenBatchNorm) stay parameters
+    stats = {k.rsplit(".", 1)[0] for k, _ in module.named_parameters()
+             if k.endswith("running_mean")}
+    frozen = {k.replace(".", "/"): np.zeros(tuple(p.shape))
+              for k, p in module.named_parameters()
+              if k.rsplit(".", 1)[0] in stats}
+    return state_dict_to_flax(module.state_dict(), frozen or None)
+
+
+def compile_once(fn, *args):
+    """``jax.jit(fn)`` lowered and compiled for ``args`` at XLA's backend
+    optimization level 0: a parity file runs each skix model on one or two
+    tiny inputs, where the optimizing passes cost more than they save."""
+    return jax.jit(fn).lower(*args).compile(compiler_options={
+        "xla_backend_optimization_level": "0",
+        "xla_llvm_disable_expensive_passes": True})

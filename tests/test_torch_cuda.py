@@ -595,3 +595,29 @@ def test_cuda_vggt_cli_shapes_match_plain(cuda, shape, rope):
     assert out.dtype == torch.bfloat16 and out.shape == shape
     torch.testing.assert_close(out.float(), ref.float(), atol=4e-3,
                                rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (4, 6, 8041, 64),      # prepare_dataset's depth task (384 / 12 / 6)
+    (4, 16, 8041, 64),     # the same DPT at Intel/dpt-large width
+])
+def test_cuda_dpt_depth_shapes_match_plain(cuda, shape):
+    """K1 at the depth task's shapes: a batch of 4 frames cropped to
+    1072 × 1920, a cls token and 67 × 120 patches (8041 tokens, no multiple
+    of a tile), float32, no rope, the online max, against the plain version
+    (1e-5). The plain version runs one (batch row, head) at a time (a
+    259 MB score matrix each)."""
+    B, H, S, D = shape
+    g = torch.Generator(device=cuda).manual_seed(17)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda) for _ in range(3))
+    before = A.LAUNCHES["flash_fwd"]
+    with torch.no_grad():
+        out = A.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert A.LAUNCHES["flash_fwd"] == before + 1
+        ref = torch.cat([torch.cat([A.attention_reference(
+            q[b:b + 1, h:h + 1], k[b:b + 1, h:h + 1], v[b:b + 1, h:h + 1],
+            1 / math.sqrt(D)) for h in range(H)], 1) for b in range(B)])
+    assert out.shape == shape and out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)

@@ -209,9 +209,11 @@ def test_unported_stages_and_modes_raise(tmp_path):
     from skix_torch.pipelines.run_all import main as torch_run_all
     from skix_torch.pipelines.vggt import main as torch_vggt
 
+    # every run_all stage is ported since the prepare_dataset slice; an
+    # unknown stage name raises
     cfg = {"paths": {"pt_root": str(tmp_path), "work_root": str(tmp_path)},
-           "stages": ["vggt", "prepare_dataset"], "device": "cpu"}
-    with pytest.raises(NotImplementedError, match="prepare_dataset"):
+           "stages": ["vggt", "camera_calibration"], "device": "cpu"}
+    with pytest.raises(ValueError, match="camera_calibration"):
         torch_run_all(cfg)
     # every vggt mode is ported since the sfm slice; an unknown one raises
     with pytest.raises(ValueError, match="unknown vggt mode"):
