@@ -72,7 +72,7 @@ Phases, one line each (the last line is the JSON verdict):
               artifact the largest difference against its limit, the RANSAC
               inlier masks, the committed lifter fixture's held-out MPJPE);
               then chain at configs/run_all.yaml's full width (VideoPose3D
-              channels 1024, widths 3x5, kpt RANSAC, LM BA) on 4 persons x
+              channels 1024, widths 3x5, kpt RANSAC, LM BA) on 2 persons x
               2 views x 900 frames of 1080p, every person's every artifact
               checked, cold (launch counts reset just before and read just
               after: no flash-attention kernel is on this path), warm,
@@ -124,7 +124,25 @@ Phases, one line each (the last line is the JSON verdict):
               warm on 16 frames under torch.profiler, then run_all with stages
               [prepare_dataset, videopose3d]; dpt_large: one warm forward of
               the depth model at Intel/dpt-large width (1024 / 24 / 16) on 4
-              frames of 1080p (K1 at (4,16,8041,64), 24 launches);
+              frames of 1080p (K1 at (4,16,8041,64), 24 launches); prep_ref
+              also holds the mask slot card against CPU (the share of
+              differing pixels, at the twin's size and at 1080p);
+7g. views     the view stages' options: side_det_ref (the cascade at
+              skix's test trunk, raw heads before the box stages' NMS,
+              detections, then the side stage with the detector in the loop,
+              card against CPU); side_det (prepare_side_results with
+              detector_name vitdet at ViTDet-H width, 1024 px, batches of 4,
+              4 person slots, the estimator at its defaults, on 2 records ×
+              64 frames of 1080p without boxes: cold with its K1 launches,
+              each model alone, warm, profiled, peak memory);
+              front_compact_ref and front_compact (model compact at
+              configs/prepare_front_results.yaml's keys, card against CPU,
+              then 64 frames of 720p, K1 launches by shape); trunk_ref and
+              front_trunk (the tracker's ViT-Det trunk tiny card against CPU,
+              then the front stage with it at full width and the overlay
+              video, launches by kernel and shape); render3d (front_side
+              with render3d at 1280 × 720 on 1 person × 300 frames, ms a
+              frame, card against CPU as a share of differing pixels);
 8. train_ref  one train_detector step of the tiny detector on the card and
               on the CPU from the same weights and batch: loss, gradients
               and updated parameters;
@@ -143,6 +161,9 @@ Phases, one line each (the last line is the JSON verdict):
 10. kernels   one JSON object per kernel (and K1/K2 mode) of the paths, its
               rope styles under "modes", then one per TPU probe B1-B7 (K2's
               variants, launched on no path) with its variants' rows.
+
+``python3 chip_smoke.py --only views,prep`` runs the build and these
+phase groups alone (GROUPS), with no kernels line and no verdict.
 
 cuDNN's TF32 is turned off in phase 4 (float32 convolutions, to compare
 card and CPU) and stays off for the phases after it; matmuls keep
@@ -231,7 +252,8 @@ TRAIN_SAM3_PER_EVAL = {"flash_fwd_single_tile/interleaved": 28,
 # run_all test: T 24, lifter channels 32, widths [3, 3], BA 8 × 10 CG)
 CHAIN_STAGES = ["videopose3d", "triangulation", "bundle_adjustment", "fuse",
                 "front_side", "angle", "metrics"]
-CHAIN_PERSONS, CHAIN_T, CHAIN_HW = 4, 900, (1080, 1920)   # 30 s at 30 fps
+# 2 persons (4 once; cut for the script's 1200 s limit as phases were added)
+CHAIN_PERSONS, CHAIN_T, CHAIN_HW = 2, 900, (1080, 1920)   # 30 s at 30 fps
 CHAIN_FULL = dict(filter_widths=[3, 3, 3, 3, 3], channels=1024,
                   ba_max_steps=30, ba_cg_iters=20)
 CHAIN_REF_T = 24
@@ -292,9 +314,14 @@ VGGT_SFM_GATES = {"sfm_min_inlier_per_frame": 0}
 NOISE_SHARE = 0.1
 
 
+_T0 = time.perf_counter()
+
+
 def say(phase: str, **fields) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
-          flush=True)
+    """One result line of a phase, with the script's seconds so far
+    (``t``)."""
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items())
+          + f" t={time.perf_counter() - _T0:.1f}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -739,6 +766,11 @@ def kernel_cases():
          1e-5, False, None),
         ("flash_fwd", "dpt_large", (4, 16, 8041, 64), 8041, f32, None, None,
          1e-5, False, None),
+        # the compact front model at configs/prepare_front_results.yaml's
+        # keys: a batch of 4 frames of 16 × 16 patches, 6 heads of 32, no
+        # rope; skix's dispatcher sends it to K1 (no tile edge is given)
+        ("flash_fwd", "compact_detector", (4, 6, 256, 32), 256, f32, None,
+         None, 1e-5, False, None),
     ]
 
 
@@ -2010,7 +2042,7 @@ def chain_phase(tmp: Path, device: str = "cuda", persons=None, T=None,
                 **size):
     """run_all's default chain plus front_side at configs/run_all.yaml's
     full width (lifter channels 1024, widths 3×5, flip on; kpt RANSAC 256
-    hypotheses a frame; BA pose_only, LM 30 × 20 CG) on 4 persons × 2 views
+    hypotheses a frame; BA pose_only, LM 30 × 20 CG) on 2 persons × 2 views
     × 900 frames at 1080p: cold (launch counts reset just before, read just
     after), warm, then the lifter's forward, the kpt route's RANSAC and the
     adaptive EMA's loop timed alone, and once more for one person under
@@ -3419,6 +3451,23 @@ def prep_reference_phase(tmp: Path, device: str = "cuda"):
     from skix_torch.pipelines import prepare_dataset as PD
 
     PD._MODELS.clear()
+    # the mask slot (ROADMAP Queue 3's watch): the picked slot's proto-grid
+    # probabilities upsampled (jax's bilinear) to the padded frame and
+    # thresholded at 0.5, on the card and on the CPU from the same
+    # detections, at the CPU twin's size and at 1080p (proto grid 272 ×
+    # 480); a pixel whose value rounds across 0.5 flips (limit 1e-3)
+    mr = np.random.default_rng(64)
+    shares = []
+    for (Hf, Wf), grid in (((60, 70), (16, 24)), ((1080, 1920), (272, 480))):
+        boxes = np.abs(mr.normal(size=(8, 3, 4))).astype(np.float32) * 20 + 4
+        det = {"seg_boxes": boxes, "seg_valid": mr.random((8, 3)) < 0.7,
+               "seg_masks": mr.random((8, 3, *grid)).astype(np.float32)}
+        a = PD._assemble_person_mask(det, Hf, Wf, device="cpu")
+        b = PD._assemble_person_mask(det, Hf, Wf, device=device)
+        shares.append(float((a != b).mean()))
+    hold("mask_slot_pixels_differ", max(shares), 1e-3)
+    res["mask_slot_pixels_differ_by_size"] = {"60x70": shares[0],
+                                              "1080x1920": shares[1]}
     say("prep_ref", **{k: (json.dumps(v).replace(" ", "")
                            if isinstance(v, dict) else v)
                        for k, v in res.items()})
@@ -3680,6 +3729,652 @@ def dpt_large_phase(tmp: Path, device: str = "cuda", hw=PREP_HW, B: int = 4,
     if on_card:
         torch.cuda.empty_cache()
     return launches, by_style
+
+
+# --------------------------------------------------------------------------
+# phase 7g: the view stages' options: the side stage's cascade detector in
+# the loop, the compact front model, the ViT-Det tracker trunk with the
+# overlay video, front_side's 3D BEV render
+# --------------------------------------------------------------------------
+# side_det: prepare_side_results with detector_name vitdet at the published
+# ViTDet-H width (Cascade Mask R-CNN, 1024 px, batches of 4, 4 person
+# slots), the estimator at the stage's defaults (vit_hmr 384 × 8, crop 256,
+# batch 8, body), on 2 records × 64 frames of 1080p without person boxes;
+# K1 launches a record: 4 slots × 8 batches × 8 blocks (the cascade's
+# attention is plain torch)
+SIDE_DET_T = 64
+SIDE_DET_CFG = dict(detector_name="vitdet", detector_embed_dim=1280,
+                    detector_depth=32, detector_num_heads=16,
+                    detector_window=14,
+                    detector_global_indexes=[7, 15, 23, 31],
+                    detector_image_size=1024, detector_batch=4, max_people=4)
+SIDE_DET_K1 = 2 * 4 * (SIDE_DET_T // 8) * 8
+# side_det_ref: skix's test trunk (32 wide, 2 heads) under the stage's heads,
+# the tiny estimator of chain_ref's side branch (6 heads of 32)
+DET_REF = dict(embed_dim=32, depth=2, num_heads=2, window_size=2,
+               global_indexes=(1,))
+SIDE_DET_REF = dict(detector_name="vitdet", detector_embed_dim=32,
+                    detector_depth=2, detector_num_heads=2, detector_window=2,
+                    detector_global_indexes=[1], detector_image_size=64,
+                    detector_batch=3, detector_bbox_thr=0.3, max_people=3,
+                    crop_size=64, embed_dim=192, vit_depth=1, num_heads=6,
+                    decoder_depth=1, batch_size=4)
+# the compact front model at configs/prepare_front_results.yaml's keys on
+# 64 frames of 720 × 1280: K1 at (4, 6, 256, 32), 6 blocks a batch of 4
+COMPACT_T, COMPACT_HW = 64, (720, 1280)
+COMPACT_SHAPE = "flash_fwd/4x6x256x32"
+# front_trunk: the default front stage with the memory tracker's ViT-Det
+# trunk (patch 14, 1024 wide, 32 deep, 16 heads, window 24) and the overlay
+# video; per frame and prompt the detector's and the trunk's 28 window
+# blocks (K2) and 4 global blocks (K1), the fusion encoder's 6 (K1), the
+# memory attention's 2 (K1 with lse)
+TRUNK_PER_FRAME = {"flash_fwd_single_tile": 28 + 28, "flash_fwd": 4 + 6 + 4,
+                   "flash_fwd_lse": 2}
+# render3d: front_side with render3d at its 1280 × 720 default on 1 person ×
+# 300 frames (cut: persons, frames)
+RENDER_T = 300
+
+
+def _smooth_record(root: Path, name: str, T: int, hw, seed: int):
+    """A side-view record of T smooth frames (``shifted_frames``) stored
+    without person boxes."""
+    import numpy as np
+
+    from skix_torch.io.contracts import PTInfo, save_pt_info
+
+    frames = shifted_frames(np.random.default_rng(seed), T, hw)
+    save_pt_info(root / "p01" / f"{name}.npz", PTInfo(
+        video_name=name, frame_count=T, img_shape=hw, fps=30.0,
+        duration=T / 30.0, frames=frames))
+
+
+def side_det_reference_phase(tmp: Path, device: str = "cuda"):
+    """The cascade at skix's test trunk under the stage's heads (the person
+    logits lifted so that boxes pass the thresholds), seeded, on the card
+    against the CPU: the raw heads before the box stages' NMS (RPN logits
+    and deltas, the proposal slots where both picked the same, and each of
+    the three stages' logits and deltas on the CPU's input boxes, 1e-4;
+    the freely chained stages reported), the detections where both made
+    the same picks (1e-4), the images picked otherwise; then the side stage with the
+    detector in the loop through its CLI on one record without boxes (the
+    tiny estimator, conditioned as side_ref's): the frames whose person
+    slots differ counted, and on the others each npz field against
+    side_ref's limits (the boxes 1e-4 of the frame). Every number relative
+    to the quantity's largest element where that exceeds 1."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from skix_torch.models import cascade_rcnn as C
+    from skix_torch.models.sam3d_body import SAM3DBody
+    from skix_torch.pipelines import prepare_side_results as PS
+
+    dev = torch.device(device)
+    res, bad = {}, []
+    # float32 convolutions on the card, as phase 4 leaves them (this group
+    # may run alone: --only views)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def hold(key, err, limit):
+        res[key] = err
+        if not err <= limit:
+            bad.append(f"{key}={err} > {limit}")
+
+    cpu = seeded(C.CascadeMaskRCNN(**DET_REF, image_size=64), 71)
+    with torch.no_grad():
+        for k in range(3):
+            getattr(cpu, f"box_head{k}").cls_score.bias[0] += 4.5
+    card = copy.deepcopy(cpu).to(dev)
+    imgs = torch.as_tensor(shifted_frames(np.random.default_rng(72), 4,
+                                          (64, 64)), dtype=torch.float32)
+    imgs = imgs / 255.0
+    want_raw, got_raw = cpu.raw_heads(imgs), card.raw_heads(imgs.to(dev))
+    hold("rpn_raw", max(scaled_err(g, w) for gr, wr in zip(got_raw, want_raw)
+                        for g, w in zip(gr.rpn_logits + gr.rpn_deltas,
+                                        wr.rpn_logits + wr.rpn_deltas)), 1e-4)
+    same_props = [scaled_err(g.proposals, w.proposals) <= 1e-3
+                  for g, w in zip(got_raw, want_raw)]
+    res["images_proposals_differ"] = same_props.count(False)
+    hold("proposals", max((scaled_err(g.proposals, w.proposals)
+                           for g, w, ok in zip(got_raw, want_raw, same_props)
+                           if ok), default=0.0), 1e-4)
+    # each box stage on the CPU's own input boxes (its proposals, then its
+    # refined boxes): the card's arithmetic; the chain run free on each
+    # side moves every stage's RoIs by the last stage's rounding as well,
+    # reported beside it
+    from skix_torch.models.keypoint_rcnn import multilevel_roi_align
+    from skix_torch.utils.device import full_float32_convs
+
+    forced = []
+    with torch.no_grad(), full_float32_convs():
+        feats = card._trunk(imgs.to(dev))[0]
+        for b, wr in enumerate(want_raw):
+            boxes = wr.proposals
+            for k in range(3):
+                rois = multilevel_roi_align([f[b] for f in feats],
+                                            boxes.to(dev), 7)
+                s, d = getattr(card, f"box_head{k}")(rois)
+                forced += [scaled_err(s, wr.stage_logits[k]),
+                           scaled_err(d, wr.stage_deltas[k])]
+                boxes = C._clip(C.apply_deltas(
+                    boxes, wr.stage_deltas[k], C.CASCADE_STAGE_WEIGHTS[k]),
+                    64, 64)
+    hold("box_stages_raw", max(forced), 1e-4)
+    res["box_stages_chained"] = max(
+        (scaled_err(g, w) for gr, wr, ok in zip(got_raw, want_raw,
+                                                same_props) if ok
+         for g, w in zip(gr.stage_logits + gr.stage_deltas + [gr.boxes],
+                         wr.stage_logits + wr.stage_deltas + [wr.boxes])),
+        default=0.0)
+    want, got = cpu(imgs), card(imgs.to(dev))
+    differ, worst = _pick_check(got, want, "boxes_xyxy", 1e-3)
+    res["detections"] = int(want.valid.sum())
+    res["images_picks_differ"] = differ
+    hold("detections_err", max(worst.values(), default=0.0), 1e-4)
+    if differ > 1 or res["images_proposals_differ"] > 1:
+        bad.append(f"{differ} of 4 images picked otherwise")
+
+    root = tmp / "side_det_ref"
+    _smooth_record(root / "pt", "cam_left", 6, (180, 320), 73)
+    (root / "ckpt").mkdir(parents=True, exist_ok=True)
+    save_skix_npz(root / "ckpt" / "det.npz", cpu)
+    est = SAM3DBody(crop_size=64, embed_dim=192, depth=1, num_heads=6,
+                    decoder_depth=1)
+    condition_side_model(seeded(est, 74))
+    save_skix_npz(root / "ckpt" / "sam3d.npz", est)
+    slots, run = {}, [None]
+    build = PS.build_human_detector
+
+    def recording(cfg, device=None):
+        det = build(cfg, device)
+        clip = det.detect_clip
+
+        def detect_clip(*a, **k):
+            slots[run[0]] = clip(*a, **k)
+            return slots[run[0]]
+        det.detect_clip = detect_clip
+        return det
+
+    PS.build_human_detector = recording
+    try:
+        for run[0] in ("cpu", "card"):
+            side = "cpu" if run[0] == "cpu" else device
+            PS.main({"paths": {"pt_root": str(root / "pt"),
+                               "out_root": str(root / run[0])},
+                     "checkpoint": str(root / "ckpt" / "sam3d.npz"),
+                     "detector_checkpoint": str(root / "ckpt" / "det.npz"),
+                     **SIDE_DET_REF, "device": side})
+    finally:
+        PS.build_human_detector = build
+    (wb, wv), (gb, gv) = slots["cpu"], slots["card"]
+    T = wv.shape[0]
+    agree = [bool(np.array_equal(gv[t], wv[t])
+                  and scaled_err(gb[t], wb[t]) <= 1e-3) for t in range(T)]
+    res["frames_slots_differ"] = f"{agree.count(False)}/{T}"
+    res["slots_valid"] = int(wv.sum())
+    if agree.count(False) * 10 > T:
+        bad.append(f"stage: {agree.count(False)} of {T} frames' slots differ")
+    limits = dict(SIDE_REF_LIMITS, bbox=1e-4)
+    for t in range(T):
+        if not agree[t]:
+            continue
+        name = f"p01/cam_left/frame_{t:06d}_sam_3d_body_outputs.npz"
+        with np.load(root / "cpu" / name) as a, \
+                np.load(root / "card" / name) as b:
+            if bool(a["det_valid"]) != bool(b["det_valid"]):
+                bad.append(f"frame {t}: det_valid differs")
+            for k, lim in limits.items():
+                e = scaled_err(b[k], a[k])
+                res[f"npz_{k}"] = max(res.get(f"npz_{k}", 0.0), e)
+    for k, lim in limits.items():
+        if not res.get(f"npz_{k}", 0.0) <= lim:
+            bad.append(f"npz_{k}={res[f'npz_{k}']} > {lim}")
+    say("side_det_ref", **res)
+    if bad:
+        fail("side_det_ref: " + "; ".join(bad))
+
+
+def side_det_phase(tmp: Path, device: str = "cuda"):
+    """``prepare_side_results`` with the detector in the loop at
+    SIDE_DET_CFG (seeded weights) on 2 records × 64 frames of 1080p without
+    person boxes: cold (launch counts reset just before and read just
+    after: exactly SIDE_DET_K1 K1 launches, the estimator's), every output
+    checked (det_valid among the fields), the peak memory; the detector's
+    and the estimator's ms a frame alone (warm, 16 frames); the stage warm
+    and then under torch.profiler (busy, idle), each on 16 frames of one
+    record."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from skix_torch.io.contracts import load_pt_info
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines import prepare_side_results as PS
+
+    root = tmp / "side_det"
+    t0 = time.perf_counter()
+    for i, view in enumerate(("cam_left", "cam_right")):
+        _smooth_record(root / "pt", view, SIDE_DET_T, SIDE_HW, 81 + i)
+    setup_s = time.perf_counter() - t0
+
+    def cfg(out):
+        return {"paths": {"pt_root": str(root / "pt"), "out_root": str(out)},
+                **SIDE_DET_CFG, "device": device}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    PS.main(cfg(root / "cold"))
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = dict(A.LAUNCHES)
+    peak = round(torch.cuda.max_memory_allocated() / 2 ** 30, 3)
+    check_side_outputs("side_det", root / "cold", SIDE_DET_T)
+    valid = [bool(np.load(f)["det_valid"])
+             for f in sorted((root / "cold").rglob("frame_*.npz"))]
+    frames = 2 * SIDE_DET_T
+    expected = {"flash_fwd": SIDE_DET_K1}
+    by_style = dict(A.LAUNCHES_BY_STYLE)
+    say("side_det", frames=frames, cold_wall_s=round(cold_s, 3),
+        cold_ms_per_frame=round(cold_s / frames * 1e3, 2),
+        records_setup_s=round(setup_s, 3), peak_mem_gib=peak,
+        frames_with_a_detection=sum(valid),
+        launches=json.dumps(launches).replace(" ", ""),
+        expected=json.dumps(expected).replace(" ", ""))
+    if launches != expected:
+        fail(f"side_det: launches {launches}, expected {expected}")
+
+    # each model alone, warm: the detector on a record, the estimator on
+    # one person slot of it
+    det = PS.build_human_detector(cfg(None))
+    est = PS.build_estimator(cfg(None))
+    frames16 = load_pt_info(root / "pt" / "p01" / "cam_left.npz").frames[:16]
+    kw = dict(batch_size=SIDE_DET_CFG["detector_batch"],
+              max_people=SIDE_DET_CFG["max_people"])
+    # the stage ran: every kernel is loaded and cuDNN's choices are made
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    boxes, _ = det.detect_clip(frames16, **kw)
+    torch.cuda.synchronize()
+    det_ms = (time.perf_counter() - t0) / len(frames16) * 1e3
+    t0 = time.perf_counter()
+    est.process_clip(frames16, boxes[:, 0], batch_size=8)
+    torch.cuda.synchronize()
+    slot_ms = (time.perf_counter() - t0) / len(frames16) * 1e3
+    size, B = (SIDE_DET_CFG["detector_image_size"],
+               SIDE_DET_CFG["detector_batch"])
+    x = torch.zeros((B, size, size, 3), device=device)
+    forward_ms = cuda_ms(lambda: det.model(x), 3)
+    say("side_det_models", detector_ms_per_frame=round(det_ms, 3),
+        detector_forward_ms_per_batch=round(forward_ms, 3),
+        estimator_ms_per_frame_per_slot=round(slot_ms, 3),
+        estimator_ms_per_frame=round(slot_ms * SIDE_DET_CFG["max_people"], 3),
+        detector_params_m=round(sum(p.numel() for p in det.model.parameters())
+                                / 1e6, 1))
+    del det, est, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # warm and profiled on the first 16 frames of one record
+    def one(out):
+        return dict(cfg(out), paths={"pt_root": str(root / "one"),
+                                     "out_root": str(out)})
+
+    _smooth_record(root / "one", "cam_left", 16, SIDE_HW, 81)
+    t0 = time.perf_counter()
+    PS.main(one(root / "warm"))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    say("side_det_warm", frames=16, wall_s=round(warm_s, 3),
+        ms_per_frame=round(warm_s / 16 * 1e3, 2))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        PS.main(one(root / "prof"))
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    gemm_ms = sum(e.self_device_time_total for e in kernels
+                  if "gemm" in e.key.lower() or "sgemm" in e.key.lower()
+                  or "cutlass" in e.key.lower()) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    say("side_det_profile", wall_ms=round(prof_wall_ms, 1),
+        device_busy_ms=round(busy_ms, 2),
+        device_idle_share=round(1.0 - busy_ms / prof_wall_ms, 4),
+        gemm_ms=round(gemm_ms, 2),
+        kernels_launched=sum(e.count for e in kernels))
+    say("side_det_profile_top", kernels=json.dumps(
+        [[e.key[:60], round(e.self_device_time_total / 1e3, 2), e.count]
+         for e in top]).replace(" ", ""))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, by_style
+
+
+def _compact_cfg(videos: Path, out: Path, device: str, **over) -> dict:
+    """configs/prepare_front_results.yaml with ``model: compact``."""
+    from skix_torch.config import load_config
+
+    cfg = load_config("prepare_front_results",
+                      config_dir=ROOT / "configs").to_dict()
+    cfg.update(model="compact", device=device, **over)
+    cfg["paths"] = {"video_root": str(videos), "out_root": str(out)}
+    return cfg
+
+
+def front_compact_reference_phase(tmp: Path, device: str = "cuda"):
+    """The stage with ``model: compact`` at the config's keys on 8 frames of
+    180 × 320, the same seeded checkpoint, on the card and on the CPU: the
+    lifecycle files (active, ids, valid) equal, scores within 1e-4, boxes
+    within 1e-4 of the frame; K1 at the compact shape on the card."""
+    import numpy as np
+
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines.prepare_front_results import main as front_main
+    from skix_torch.tracking.detector import DetrDetector
+
+    root = tmp / "front_compact_ref"
+    write_clip(root / "videos" / "p01" / "clip.mp4", 8, (180, 320), seed=91)
+    keys = _compact_cfg(root, root, "cpu")
+    det = seeded(DetrDetector(
+        img_size=keys["img_size"], patch_size=keys["patch_size"],
+        embed_dim=keys["embed_dim"], depth=keys["vit_depth"],
+        num_heads=keys["num_heads"], num_queries=keys["num_queries"],
+        decoder_depth=keys["decoder_depth"], prompt_dim=keys["prompt_dim"]),
+        92)
+    save_skix_npz(root / "det.npz", det)
+    for side in ("cpu", device):
+        if side == device:
+            reset_counts()
+        front_main(_compact_cfg(root / "videos", root / side, side,
+                                checkpoint=str(root / "det.npz")))
+    by_shape = dict(A.LAUNCHES_BY_SHAPE)
+    res, bad = {}, []
+    for f in sorted((root / "cpu" / "p01").glob("*.npy")):
+        a, b = np.load(f), np.load(root / device / "p01" / f.name)
+        if a.dtype.kind in "bi":
+            res[f.stem] = int((a != b).sum())
+            ok = res[f.stem] == 0
+        else:
+            res[f.stem] = scaled_err(b, a)
+            ok = res[f.stem] <= 1e-4
+        if not ok:
+            bad.append(f.stem)
+    want = {COMPACT_SHAPE: 6 * 2 * 2}
+    say("front_compact_ref", **res,
+        launches_by_shape=json.dumps(by_shape).replace(" ", ""))
+    if bad:
+        fail(f"front_compact_ref: card and CPU disagree on {bad}")
+    if by_shape != want:
+        fail(f"front_compact_ref: launches {by_shape}, expected {want}")
+
+
+def front_compact_phase(tmp: Path, device: str = "cuda"):
+    """The stage with ``model: compact`` at the config's keys (seeded
+    weights) on 64 frames of 720 × 1280, prompts person and snow: cold with
+    launches by kernel and shape (6 K1 a batch of 4 frames and prompt),
+    every file checked; warm (ms a batch from the stage's spans); then
+    profiled."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines.prepare_front_results import main as front_main
+
+    root = tmp / "front_compact"
+    write_clip(root / "videos" / "p01" / "clip.mp4", COMPACT_T, COMPACT_HW,
+               seed=93)
+    reset_counts()
+    t0 = time.perf_counter()
+    front_main(_compact_cfg(root / "videos", root / "cold", device))
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches, by_shape = dict(A.LAUNCHES), dict(A.LAUNCHES_BY_SHAPE)
+    by_style = dict(A.LAUNCHES_BY_STYLE)
+    out = root / "cold" / "p01"
+    B = 4
+    for p in FRONT_PROMPTS:
+        for kind, shape in (("bboxes", (COMPACT_T, 16, 4)),
+                            ("scores", (COMPACT_T, 16)),
+                            ("active", (COMPACT_T, 16)),
+                            ("obj_ids", (COMPACT_T, 16))):
+            if kind == "bboxes" and p == "person":
+                shape = (COMPACT_T, 4)      # person_bboxes overwrites it
+            f = out / f"{p}_{kind}.npy"
+            if not f.exists() or np.load(f).shape != shape:
+                fail(f"front_compact: {f.name} missing or not {shape}")
+        if (out / f"{p}_masks.npy").exists():
+            fail("front_compact: the compact path wrote masks")
+    batches = len(FRONT_PROMPTS) * (COMPACT_T // B)
+    expected = {"flash_fwd": 6 * batches}
+    spans = json.loads((root / "cold" / "front_timing.json").read_text())
+    say("front_compact", frames=COMPACT_T, prompts=len(FRONT_PROMPTS),
+        cold_wall_s=round(cold_s, 3),
+        launches=json.dumps(launches).replace(" ", ""),
+        launches_by_shape=json.dumps(by_shape).replace(" ", ""),
+        expected=json.dumps(expected).replace(" ", ""),
+        person_active_mean=float(np.load(out / "person_active.npy").mean()))
+    if launches != expected or by_shape != {COMPACT_SHAPE: 6 * batches}:
+        fail(f"front_compact: launches {launches} {by_shape}, expected "
+             f"{expected}")
+    t0 = time.perf_counter()
+    front_main(_compact_cfg(root / "videos", root / "warm", device))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    spans = json.loads((root / "warm" / "front_timing.json").read_text())
+    say("front_compact_warm", wall_s=round(warm_s, 3),
+        ms_per_frame_and_prompt=round(warm_s / (COMPACT_T * 2) * 1e3, 3),
+        detector_ms_per_batch=spans["detector"]["mean_ms"],
+        tracker_ms_per_batch=spans["tracker"]["mean_ms"])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        front_main(_compact_cfg(root / "videos", root / "prof", device))
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    k1_ms = sum(e.self_device_time_total for e in kernels
+                if "flash_fwd_kernel" in e.key) / 1e3
+    say("front_compact_profile", wall_ms=round(prof_wall_ms, 1),
+        device_busy_ms=round(busy_ms, 2),
+        device_idle_share=round(1.0 - busy_ms / prof_wall_ms, 4),
+        k1_ms=round(k1_ms, 3), kernels_launched=sum(e.count for e in kernels))
+    return launches, by_style
+
+
+def trunk_reference_phase(device: str = "cuda"):
+    """The memory tracker with a tiny ViT-Det trunk (512 wide for 16 heads
+    of 32, 8 blocks: block 7 global), seeded, on the card against the CPU:
+    a 112 px frame's features and one step (the dense memory attention) on
+    a bank with a conditioning memory (1e-4); K2, K1 and K1 with its lse
+    on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from skix_torch.ops import attention as A
+    from skix_torch.tracking import memory_tracker as M
+
+    cpu = seeded(M.MaskMemoryTracker(features=64, num_heads=1, mem_slots=3,
+                                     trunk="vitdet", vit_embed_dim=512,
+                                     vit_depth=8), 101)
+    card = copy.deepcopy(cpu).to(device)
+    x = torch.as_tensor(shifted_frames(np.random.default_rng(102), 1,
+                                       (112, 112)), dtype=torch.float32) / 255
+    mem = torch.randn((1, 8, 8, 64), generator=torch.Generator().manual_seed(3))
+    out = {}
+    for side, m in (("cpu", cpu), (device, card)):
+        if side == device:
+            reset_counts()
+        with torch.no_grad():
+            f = m.encode_frame(x.to(side))
+            bank = M.write_conditioning(M.init_memory(3, 8, 8, 64,
+                                                      device=side),
+                                        mem.to(side))
+            logits, score, bank = m.step_from_feats(f, bank, dense=True)
+        out[side] = [f, logits, score, bank.mem]
+    launches = dict(A.LAUNCHES)
+    errs = [scaled_err(g, w) for g, w in zip(out[device], out["cpu"])]
+    say("trunk_ref", features_err=errs[0], mask_logits_err=errs[1],
+        score_err=errs[2], memory_err=errs[3],
+        launches=json.dumps(launches).replace(" ", ""))
+    if max(errs) > 1e-4:
+        fail(f"trunk_ref: card against CPU {errs} > 1e-4")
+    want = {"flash_fwd_single_tile": 7, "flash_fwd": 1, "flash_fwd_lse": 2}
+    if launches != want:
+        fail(f"trunk_ref: launches {launches}, expected {want}")
+
+
+def front_trunk_phase(tmp: Path, device: str = "cuda"):
+    """The front stage at its full-size default with ``tracker: {trunk:
+    vitdet}`` (the ViT-Det trunk at full width, seeded) and
+    ``overlay_video: true`` on 4 frames of 720 × 1280 × 2 prompts, through
+    run_all's stage entry: launches by kernel and shape (TRUNK_PER_FRAME a
+    frame and prompt), the files and each overlay video's frame count."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines.prepare_front_results import main as front_main
+
+    frames = np.random.default_rng(3).integers(
+        0, 255, (FRONT_T, *FRONT_HW, 3), dtype=np.uint8)
+    root = tmp / "front_trunk"
+    from skix_torch.io.video import write_video
+
+    write_video(root / "videos" / "p01" / "clip.mp4", frames, fps=10)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    front_main({"paths": {"video_root": str(root / "videos"),
+                          "out_root": str(root / "out")},
+                "prompts": FRONT_PROMPTS, "tracker": {"trunk": "vitdet"},
+                "overlay_video": True, "device": device})
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, by_shape = dict(A.LAUNCHES), dict(A.LAUNCHES_BY_SHAPE)
+    by_style = dict(A.LAUNCHES_BY_STYLE)
+    out = root / "out" / "p01"
+    counts = {}
+    for p in FRONT_PROMPTS:
+        if not (out / f"{p}_masks.npy").exists():
+            fail(f"front_trunk: no {p}_masks.npy (see the log)")
+        cap = cv2.VideoCapture(str(out / f"{p}_overlay.mp4"))
+        counts[p] = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        cap.release()
+    spans = json.loads((root / "out" / "front_timing.json").read_text())
+    n = FRONT_T * len(FRONT_PROMPTS)
+    expected = {k: n * v for k, v in TRUNK_PER_FRAME.items()}
+    say("front_trunk", wall_s=round(wall_s, 3), frames=n,
+        detector_ms_per_frame=spans["detector"]["mean_ms"],
+        tracker_ms_per_frame=spans["tracker"]["mean_ms"],
+        outputs_ms_per_frame=spans["outputs"]["mean_ms"],
+        overlay_frames=json.dumps(counts).replace(" ", ""),
+        launches=json.dumps(launches).replace(" ", ""),
+        launches_by_shape=json.dumps(by_shape).replace(" ", ""),
+        expected=json.dumps(expected).replace(" ", ""),
+        peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+    if launches != expected:
+        fail(f"front_trunk: launches {launches}, expected {expected}")
+    if set(counts.values()) != {FRONT_T}:
+        fail(f"front_trunk: overlay frame counts {counts}, not {FRONT_T}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, by_style
+
+
+def _front_side_inputs(root: Path, T: int, seed: int):
+    """front_side's inputs for person p01: two side views (70-joint world
+    skeletons walking downhill, the right view 1 cm off) and the front
+    person boxes moving downhill."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    side = root / "side" / "p01"
+    side.mkdir(parents=True, exist_ok=True)
+    base = (rng.normal(size=(T, 70, 3)).cumsum(0) * 0.002
+            + rng.normal(size=(1, 70, 3)) * 0.3)
+    np.save(side / "left_view.npy", base.astype(np.float32))
+    np.save(side / "right_view.npy",
+            (base + rng.normal(size=base.shape) * 0.01).astype(np.float32))
+    front = root / "front" / "p01"
+    front.mkdir(parents=True, exist_ok=True)
+    bbox = np.tile(np.array([900.0, 400, 1000, 800], np.float32), (T, 1))
+    bbox[:, [1, 3]] += np.linspace(0, 200, T)[:, None]
+    np.save(front / "person_bboxes.npy", bbox.astype(np.float32))
+
+
+def render3d_phase(tmp: Path, device: str = "cuda"):
+    """front_side with ``render3d: true`` at its 1280 × 720 default on
+    1 person × 300 frames: the stage without the render (it warms the
+    fusion), then with it (ms a frame of the 3D BEV video, launches
+    counted), the renderer alone (CUDA events), and 3 frames rendered on
+    the card and on the CPU: the share of differing pixels (limit
+    1e-3)."""
+    import numpy as np
+    import torch
+
+    from skix_torch.front_side.bev import BEV_EDGES_MINIMAL
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines.front_side import main as fs_main
+    from skix_torch.vis.render3d import BevVideoRenderer, BevView
+
+    root = tmp / "render3d"
+    _front_side_inputs(root, RENDER_T, 111)
+
+    def run(out, render3d):
+        t0 = time.perf_counter()
+        fs_main({"paths": {"side_root": str(root / "side"),
+                           "front_root": str(root / "front"),
+                           "out_root": str(root / out)},
+                 "render3d": render3d, "device": device})
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    without_s = run("plain", False)
+    reset_counts()
+    with_s = run("cold", True)
+    launches = dict(A.LAUNCHES)
+    video = root / "cold" / "p01" / "p01_bev3d.mp4"
+    import cv2
+
+    cap = cv2.VideoCapture(str(video))
+    n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    if n != RENDER_T:
+        fail(f"render3d: {video.name} holds {n} frames, not {RENDER_T}")
+    world = np.load(root / "cold" / "p01" / "p01_world.npy")
+    center = np.nanmean(world.reshape(-1, 3), axis=0)
+    kw = dict(edges=BEV_EDGES_MINIMAL, view=BevView(lookat=tuple(center)))
+    r = BevVideoRenderer(None, device=device, **kw)
+    frame_ms = cuda_ms(lambda: r.render(world[0]), 5)
+    r_cpu = BevVideoRenderer(None, device="cpu", **kw)
+    differ = [float((r.render(world[t]) != r_cpu.render(world[t])).any(-1)
+                    .mean()) for t in (0, RENDER_T // 2, RENDER_T - 1)]
+    say("render3d", frames=RENDER_T,
+        stage_ms_per_frame=round(with_s / RENDER_T * 1e3, 3),
+        stage_without_render_ms_per_frame=round(without_s / RENDER_T * 1e3,
+                                                3),
+        render_ms_per_frame=round((with_s - without_s) / RENDER_T * 1e3, 3),
+        render_frame_ms=round(frame_ms, 3),
+        card_vs_cpu_pixels_differ=json.dumps(differ).replace(" ", ""),
+        launches=json.dumps(launches).replace(" ", ""))
+    if max(differ) > 1e-3:
+        fail(f"render3d: card and CPU differ on {differ} of the pixels")
+    return launches, dict(A.LAUNCHES_BY_STYLE)
 
 
 # --------------------------------------------------------------------------
@@ -4013,7 +4708,25 @@ def train_profile_phase(tmp: Path, run):
          for e in top]).replace(" ", ""))
 
 
+GROUPS = ("kernels", "vggt", "front", "chain", "side", "vggt_cli", "prep",
+          "views", "train")
+
+
 def main() -> int:
+    # ``--only a,b``: a partial run of these phase groups (GROUPS; "train"
+    # needs "front", whose sam3 checkpoints it starts from) after the build,
+    # with no kernels line and no verdict. Without arguments every group
+    # runs, as the verdict needs.
+    only = None
+    if len(sys.argv) > 1:
+        if len(sys.argv) != 3 or sys.argv[1] != "--only" or not set(
+                sys.argv[2].split(",")) <= set(GROUPS):
+            fail(f"usage: chip_smoke.py [--only {{{','.join(GROUPS)}}}[,...]]")
+        only = set(sys.argv[2].split(","))
+
+    def want(group: str) -> bool:
+        return only is None or group in only
+
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
     # the full-size training step peaks at ~74 GiB of the card's 79.1 GiB
@@ -4047,86 +4760,120 @@ def main() -> int:
     build_phase(sorted({Path(src).stem for src, _ in KERNELS.values()}))
 
     # 3. kernels against plain, at the main paths' shapes
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [check_kernel(c, gen) for c in kernel_cases()]
-    torch.cuda.empty_cache()
-    for c in backward_cases():
-        rows += check_backward(c, gen)
+    rows, probe_rows = [], []
+    if want("kernels"):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        rows = [check_kernel(c, gen) for c in kernel_cases()]
         torch.cuda.empty_cache()
-    # 3c. K2's probes B1-B7, each variant against its plain version
-    probe_rows = window_probe_phase()
+        for c in backward_cases():
+            rows += check_backward(c, gen)
+            torch.cuda.empty_cache()
+        # 3c. K2's probes B1-B7, each variant against its plain version
+        probe_rows = window_probe_phase()
 
     with tempfile.TemporaryDirectory(prefix="skix_chip_smoke_") as tmpdir:
         tmp = Path(tmpdir)
         paths = {}      # main path → (launches, launches by rope style)
         # 4. small-input reference, 5. the VGGT main path, warm, profiled
-        reference_phase(tmp)
-        *paths["vggt"], cfg = main_phase(tmp)
-        profile_phase(tmp, cfg)
-        # 6. the front stage, tiny, card against CPU
-        front_reference_phase(tmp)
-        # 7. the front main path, warm, profiled
-        *paths["front"], frames = front_phase(tmp)
-        front_profile_phase(tmp, frames)
-        # 7b. the same in the sam3 configuration: the interleaved rope and
-        # the CLIP tower, tiny card against CPU, then at full size from
-        # converted reference-layout checkpoints, warm, profiled
-        from skix_torch.tracking.clip_tokenizer import PATTERN_MODULE
+        if want("vggt"):
+            reference_phase(tmp)
+            *paths["vggt"], cfg = main_phase(tmp)
+            profile_phase(tmp, cfg)
+        if want("front"):
+            # 6. the front stage, tiny, card against CPU
+            front_reference_phase(tmp)
+            # 7. the front main path, warm, profiled
+            *paths["front"], frames = front_phase(tmp)
+            front_profile_phase(tmp, frames)
+            # 7b. the same in the sam3 configuration: the interleaved rope
+            # and the CLIP tower, tiny card against CPU, then at full size
+            # from converted reference-layout checkpoints, warm, profiled
+            from skix_torch.tracking.clip_tokenizer import PATTERN_MODULE
 
-        say("clip", tokenizer_pattern_module=PATTERN_MODULE)
-        front_reference_phase(tmp, sam3=True)
-        det_ckpt, clip_ckpt = write_sam3_checkpoints(tmp)
-        sam3 = {"front_detector": SAM3_DETECTOR,
-                "front_detector_checkpoint": str(det_ckpt),
-                "front_clip": {"checkpoint": str(clip_ckpt)}}
-        *paths["front_sam3"], _ = front_phase(tmp, "front_sam3", sam3,
-                                              FRONT_SAM3_PER_FRAME)
-        front_profile_phase(tmp, frames, "front_sam3", sam3)
-        clip_ckpt.unlink()
-        gc.collect()
-        torch.cuda.empty_cache()
-        # 7c. run_all's default chain: small, card against CPU; then at the
-        # full width, warm, profiled, and its pieces timed alone
-        chain_reference_phase(tmp)
-        paths["chain"] = chain_phase(tmp)
-        gc.collect()
-        torch.cuda.empty_cache()
-        # 7d. the side-view stage: tiny, card against CPU; at the published
-        # DINOv3 width with MoGe, warm, per pass, profiled; run_all's side
-        # branch at its defaults
-        side_reference_phase(tmp)
-        paths["side"] = side_phase(tmp)
-        paths["side_chain"] = side_chain_phase(tmp)
-        gc.collect()
-        torch.cuda.empty_cache()
-        # 7e. the vggt CLI's single and sfm modes: small, card against CPU;
-        # at VGGT-1B width, warm, profiled; sfm's pieces and the DINOv2
-        # patch embed's forward
-        vggt_reference_phase(tmp)
-        paths["vggt_single"] = vggt_single_phase(tmp)
-        paths["vggt_sfm"], paths["vggt_vit"] = vggt_sfm_phase(tmp)
-        gc.collect()
-        torch.cuda.empty_cache()
-        # 7f. prepare_dataset: tiny, card against CPU stage by stage; at the
-        # published widths on 2 × 64 frames of 1080p, per task, profiled,
-        # and through run_all; the DPT at Intel/dpt-large width
-        prep_reference_phase(tmp)
-        paths["prep"] = prep_phase(tmp)
-        paths["dpt_large"] = dpt_large_phase(tmp)
-        gc.collect()
-        torch.cuda.empty_cache()
-        # 8. one training step, tiny, card against CPU
-        train_reference_phase(tmp)
-        # 9. the training main path at full size, profiled
-        train_run, *paths["train"] = train_phase(tmp)
-        train_profile_phase(tmp, train_run)
-        del train_run
-        # 9b. the same in the sam3 configuration (the first run's model,
-        # optimizer and cached blocks freed first)
-        train_reference_phase(tmp, sam3=True)
-        train_run, *paths["train_sam3"] = train_phase(tmp, "train_sam3",
-                                                      det_ckpt)
-        del train_run
+            say("clip", tokenizer_pattern_module=PATTERN_MODULE)
+            front_reference_phase(tmp, sam3=True)
+            det_ckpt, clip_ckpt = write_sam3_checkpoints(tmp)
+            sam3 = {"front_detector": SAM3_DETECTOR,
+                    "front_detector_checkpoint": str(det_ckpt),
+                    "front_clip": {"checkpoint": str(clip_ckpt)}}
+            *paths["front_sam3"], _ = front_phase(tmp, "front_sam3", sam3,
+                                                  FRONT_SAM3_PER_FRAME)
+            front_profile_phase(tmp, frames, "front_sam3", sam3)
+            clip_ckpt.unlink()
+            gc.collect()
+            torch.cuda.empty_cache()
+        if want("chain"):
+            # 7c. run_all's default chain: small, card against CPU; then at
+            # the full width, warm, profiled, and its pieces timed alone
+            chain_reference_phase(tmp)
+            paths["chain"] = chain_phase(tmp)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if want("side"):
+            # 7d. the side-view stage: tiny, card against CPU; at the
+            # published DINOv3 width with MoGe, warm, per pass, profiled;
+            # run_all's side branch at its defaults
+            side_reference_phase(tmp)
+            paths["side"] = side_phase(tmp)
+            paths["side_chain"] = side_chain_phase(tmp)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if want("vggt_cli"):
+            # 7e. the vggt CLI's single and sfm modes: small, card against
+            # CPU; at VGGT-1B width, warm, profiled; sfm's pieces and the
+            # DINOv2 patch embed's forward
+            vggt_reference_phase(tmp)
+            paths["vggt_single"] = vggt_single_phase(tmp)
+            paths["vggt_sfm"], paths["vggt_vit"] = vggt_sfm_phase(tmp)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if want("prep"):
+            # 7f. prepare_dataset: tiny, card against CPU stage by stage
+            # (and the mask slot); at the published widths on 2 × 64 frames
+            # of 1080p, per task, profiled, and through run_all; the DPT at
+            # Intel/dpt-large width
+            prep_reference_phase(tmp)
+            paths["prep"] = prep_phase(tmp)
+            paths["dpt_large"] = dpt_large_phase(tmp)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if want("views"):
+            # 7g. the view stages' options: the side stage's cascade
+            # detector (tiny card against CPU, then ViTDet-H in the loop),
+            # the compact front model (the config's keys, card against CPU,
+            # then 64 frames of 720p), the tracker's ViT-Det trunk (tiny
+            # card against CPU, then at full width with the overlay video),
+            # front_side's 3D BEV render
+            side_det_reference_phase(tmp)
+            paths["side_det"] = side_det_phase(tmp)
+            front_compact_reference_phase(tmp)
+            paths["front_compact"] = front_compact_phase(tmp)
+            trunk_reference_phase()
+            paths["front_trunk"] = front_trunk_phase(tmp)
+            paths["render3d"] = render3d_phase(tmp)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if want("train"):
+            # 8. one training step, tiny, card against CPU
+            train_reference_phase(tmp)
+            # 9. the training main path at full size, profiled
+            train_run, *paths["train"] = train_phase(tmp)
+            train_profile_phase(tmp, train_run)
+            del train_run
+            # 9b. the same in the sam3 configuration (the first run's
+            # model, optimizer and cached blocks freed first)
+            train_reference_phase(tmp, sam3=True)
+            train_run, *paths["train_sam3"] = train_phase(tmp, "train_sam3",
+                                                          det_ckpt)
+            del train_run
+
+    if only is not None:
+        say("only", groups=",".join(sorted(only)),
+            paths=json.dumps({p: l for p, (l, _) in paths.items()}).replace(
+                " ", ""))
+        print("chip_smoke: a partial run (--only): no kernels line, no "
+              "verdict", flush=True)
+        return 0
 
     # 10. kernels line: per kernel (K1 and K2 per mode) its launches on
     # each main path, and the times of its case at the path's largest

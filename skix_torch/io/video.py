@@ -138,3 +138,28 @@ def write_video(path: str | Path, frames: np.ndarray, fps: float = 30.0) -> None
             out.write(cv2.cvtColor(frames[i], cv2.COLOR_RGB2BGR))
     finally:
         out.release()
+
+
+def merge_frames_to_video(frame_dir: str | Path, out_path: str | Path,
+                          fps: float = 30.0, pattern: str = "*.png") -> int:
+    """Merge an image directory (sorted by name) into an mp4 sized by its
+    first image. Returns the frame count."""
+    import cv2
+
+    files = sorted(Path(frame_dir).glob(pattern))
+    if not files:
+        return 0
+    first = cv2.imread(str(files[0]))
+    H, W = first.shape[:2]
+    out_path = Path(out_path)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out = cv2.VideoWriter(str(out_path), cv2.VideoWriter_fourcc(*"mp4v"),
+                          fps, (W, H))
+    try:
+        for f in files:
+            img = cv2.imread(str(f))
+            if img is not None:
+                out.write(img)
+    finally:
+        out.release()
+    return len(files)

@@ -8,8 +8,10 @@ person track's foot points through the ground homography into BEV pixels;
 (OpenCV, host side), written as ``<person>_bev.mp4``, with
 ``<person>_world.npy``, ``<person>_feet_bev.npy`` and
 ``front_side_summary.json``. A person that fails is logged and skipped, as
-in skix. ``render3d`` (skix's offscreen 3D BEV video on its rasterizer)
-is not ported yet and raises ``NotImplementedError``.
+in skix. ``render3d: true`` adds ``<person>_bev3d.mp4``, the offscreen 3D
+BEV video of the world skeleton (:mod:`skix_torch.vis.render3d`, rasterized
+on ``cfg.device``; ``render3d_width``, ``render3d_height``,
+``render3d_eye_height``, ``render3d_kp_radius``).
 """
 
 from __future__ import annotations
@@ -87,6 +89,23 @@ def process_person(person: str, side_left: Path, side_right: Path,
     out_dir.mkdir(parents=True, exist_ok=True)
     write_video(out_dir / f"{person}_bev.mp4", np.stack(frames),
                 fps=float(cfg.get("fps", 30.0)))
+    if bool(cfg.get("render3d", False)):
+        # the offscreen 3D BEV video on the port's rasterizer
+        from skix_torch.front_side.bev import BEV_EDGES_MINIMAL
+        from skix_torch.vis.render3d import BevVideoRenderer, BevView
+
+        center = np.nanmean(world.reshape(-1, 3), axis=0)
+        center = np.where(np.isfinite(center), center, 0.0)
+        with BevVideoRenderer(
+                out_dir / f"{person}_bev3d.mp4", edges=BEV_EDGES_MINIMAL,
+                width=int(cfg.get("render3d_width", 1280)),
+                height=int(cfg.get("render3d_height", 720)),
+                fps=int(cfg.get("fps", 30)),
+                view=BevView(lookat=tuple(center), eye_height=float(
+                    cfg.get("render3d_eye_height", 25.0))),
+                kp_radius=float(cfg.get("render3d_kp_radius", 0.08)),
+                device=device) as r3d:
+            r3d.render_many(world)
     np.save(out_dir / f"{person}_world.npy", world)
     np.save(out_dir / f"{person}_feet_bev.npy", feet_bev)
     return {"frames": int(T),
@@ -97,10 +116,6 @@ def process_person(person: str, side_left: Path, side_right: Path,
 @cli_main("front_side")
 def main(cfg):
     logging.basicConfig(level=logging.INFO)
-    if bool(cfg.get("render3d", False)):
-        raise NotImplementedError(
-            "front_side render3d (skix/vis/render3d.py's BEV video) is not "
-            "ported to skix_torch yet (ROADMAP Queue 1 item 14)")
     device = resolve_device(cfg.get("device"))
     side_root = Path(cfg.paths.side_root)
     front_root = Path(cfg.paths.front_root)

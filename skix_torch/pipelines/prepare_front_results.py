@@ -24,11 +24,25 @@ width 1024, 16 heads, 24 layers, context 32); the tokenizer's context is
 the encoder's (skix's stage builds its tokenizer with CLIP's default 77,
 which its 32-token encoder cannot take). ``detector: {rope_style: sam3,
 pretrain_img_size: 336}`` is the detector configuration that converted
-SAM3 weights need. Without checkpoints the stage runs, loudly, with seeded
-random weights and hash prompt embeddings (skix's smoke mode). The compact
-model and ``overlay_video`` come with later slices and raise.
-:func:`process_frames` is :func:`process_video` without the decode, for
-callers that hold the frames already.
+SAM3 weights need. ``tracker: {trunk: vitdet}`` gives the memory tracker
+the ViT-Det trunk (patch 14, 1024 wide, depth 32, 16 heads, window 24)
+in place of its conv pyramid. ``overlay_video: true`` renders each
+prompt's masks, boxes and ids over the frames into ``<prompt>_overlay.mp4``
+(``overlay_fps``, default 10).
+
+``model: compact`` is skix's box-only path: the compact
+:class:`~skix_torch.tracking.detector.DetrDetector` (``img_size``,
+``patch_size``, ``embed_dim``, ``vit_depth``, ``num_heads``,
+``num_queries``, ``decoder_depth``, ``prompt_dim``; ``checkpoint``) in
+batches of ``batch_size`` frames, hash prompt embeddings, and the slot
+lifecycle (``max_objects``, ``det_score_threshold``,
+``min_hits_to_confirm``). It writes the box files only (no masks, no
+tracker scores, no overlay), as skix does.
+
+Without checkpoints the stage runs, loudly, with seeded random weights and
+hash prompt embeddings (skix's smoke mode). :func:`process_frames` is
+:func:`process_video` without the decode, for callers that hold the frames
+already.
 """
 
 from __future__ import annotations
@@ -115,15 +129,43 @@ def _build_sam3(cfg, device, timer=None):
                           smoke_prompts=clip is None, timer=timer)
 
 
+def _build_compact(cfg, device, timer=None):
+    """The compact box-only predictor: DetrDetector + slot lifecycle."""
+    from skix_torch.tracking.detector import DetrDetector
+    from skix_torch.tracking.lifecycle import TrackerConfig
+    from skix_torch.tracking.session import VideoPredictor
+
+    with torch.device("meta"):
+        det = DetrDetector(
+            img_size=int(cfg.get("img_size", 256)),
+            patch_size=int(cfg.get("patch_size", 16)),
+            embed_dim=int(cfg.get("embed_dim", 192)),
+            depth=int(cfg.get("vit_depth", 6)),
+            num_heads=int(cfg.get("num_heads", 6)),
+            num_queries=int(cfg.get("num_queries", 16)),
+            decoder_depth=int(cfg.get("decoder_depth", 2)),
+            prompt_dim=int(cfg.get("prompt_dim", 64)))
+    ckpt = cfg.get("checkpoint")
+    if not (ckpt and Path(ckpt).exists()):
+        log.warning("no detector checkpoint configured — random init "
+                    "(smoke mode)")
+    det = _load_into(det.to_empty(device=device), ckpt, "detector", seed=0)
+    tcfg = TrackerConfig(
+        max_objects=int(cfg.get("max_objects", 16)),
+        det_score_threshold=float(cfg.get("det_score_threshold", 0.5)),
+        min_hits_to_confirm=int(cfg.get("min_hits_to_confirm", 3)))
+    return VideoPredictor(det, tracker_cfg=tcfg,
+                          batch_size=int(cfg.get("batch_size", 4)),
+                          timer=timer)
+
+
 def build_predictor(cfg, device=None, timer=None):
     model = str(cfg.get("model", "sam3"))
+    device = device or resolve_device(cfg.get("device"))
     if model == "sam3":
-        return _build_sam3(cfg, device or resolve_device(cfg.get("device")),
-                           timer)
+        return _build_sam3(cfg, device, timer)
     if model == "compact":
-        raise NotImplementedError(
-            "model 'compact' (DetrDetector, boxes only) comes with its own "
-            "slice of the port")
+        return _build_compact(cfg, device, timer)
     raise ValueError(f"unknown model '{model}' (sam3 | compact)")
 
 
@@ -144,6 +186,7 @@ def process_frames(pred, frames: np.ndarray, out_dir: Path, cfg) -> dict:
     """Track every prompt of ``cfg.prompts`` through ``frames (T, H, W, 3)``
     uint8 and write the stage's files into ``out_dir``."""
     sid = pred.start_session(frames)
+    has_masks = pred.tracker is not None
     report = {}
     try:
         for prompt in list(cfg.get("prompts", ["person", "snow"])):
@@ -155,8 +198,9 @@ def process_frames(pred, frames: np.ndarray, out_dir: Path, cfg) -> dict:
                 scores.append(o["score"])
                 active.append(o["active"])
                 ids.append(o["obj_id"])
-                masks.append(o["mask"])
-                tscores.append(o["tracker_score"])
+                if has_masks:
+                    masks.append(o["mask"])
+                    tscores.append(o["tracker_score"])
             out_dir.mkdir(parents=True, exist_ok=True)
             boxes = np.stack(boxes)
             scores = np.stack(scores)
@@ -165,10 +209,12 @@ def process_frames(pred, frames: np.ndarray, out_dir: Path, cfg) -> dict:
             np.save(out_dir / f"{prompt}_scores.npy", scores)
             np.save(out_dir / f"{prompt}_active.npy", active)
             np.save(out_dir / f"{prompt}_obj_ids.npy", np.stack(ids))
-            np.save(out_dir / f"{prompt}_masks.npy",
-                    _resize_masks(np.stack(masks), cfg.get("save_mask_size")))
-            np.save(out_dir / f"{prompt}_tracker_scores.npy",
-                    np.stack(tscores))
+            if has_masks:
+                np.save(out_dir / f"{prompt}_masks.npy",
+                        _resize_masks(np.stack(masks),
+                                      cfg.get("save_mask_size")))
+                np.save(out_dir / f"{prompt}_tracker_scores.npy",
+                        np.stack(tscores))
             if prompt == "person":
                 # (T, 4) best-track path for front_side; frames with no
                 # active track carry the nearest valid box
@@ -184,9 +230,24 @@ def process_frames(pred, frames: np.ndarray, out_dir: Path, cfg) -> dict:
                     pb = pb[ff]
                 np.save(out_dir / "person_bboxes.npy", pb)
                 np.save(out_dir / "person_valid.npy", valid)
+            if has_masks and bool(cfg.get("overlay_video", False)):
+                # the per-object masklet overlay video
+                from skix_torch.vis.masklet import (
+                    masklet_outputs_from_session, save_masklet_video)
+
+                H, W = frames.shape[1:3]
+                per_frame = {
+                    t: masklet_outputs_from_session(
+                        {"mask": masks[t], "bbox": boxes[t],
+                         "score": scores[t], "active": active[t],
+                         "obj_id": ids[t]}, (H, W))
+                    for t in range(len(boxes))}
+                save_masklet_video(frames, per_frame,
+                                   out_dir / f"{prompt}_overlay.mp4",
+                                   fps=float(cfg.get("overlay_fps", 10.0)))
             report[prompt] = {"frames": int(len(boxes)),
                               "mean_active": float(active.mean()),
-                              "masks_saved": True}
+                              "masks_saved": bool(has_masks)}
             pred.reset_session(sid)
     finally:
         pred.close_session(sid)
@@ -203,9 +264,6 @@ def process_video(pred, video_path: Path, out_dir: Path, cfg) -> dict:
 @cli_main("prepare_front_results")
 def main(cfg):
     logging.basicConfig(level=logging.INFO)
-    if bool(cfg.get("overlay_video", False)):
-        raise NotImplementedError(
-            "overlay_video comes with the port of skix/vis/masklet.py")
     timer = StageTimer()
     pred = build_predictor(cfg, timer=timer)
     root = Path(cfg.paths.video_root)

@@ -15,11 +15,22 @@ directory written under a temporary name and renamed into place, and
 per-video errors are logged and swallowed, as in skix). A record whose
 output directory exists is skipped unless ``overwrite``.
 
-``checkpoint`` and ``fov_checkpoint`` are skix checkpoint npz files, read
-through ``skix_torch.convert``; without them the models run, loudly, with
-seeded random weights (skix's smoke mode). The models run on
-``cfg.device`` (default ``cuda``). ``detector_name: vitdet`` (the cascade
-Mask R-CNN detector in the loop) is not ported and raises.
+``detector_name: vitdet`` puts skix's human detector in the loop for
+records without person boxes: the cascade Mask R-CNN over a ViT-Det trunk
+(``detector_embed_dim``, ``detector_depth``, ``detector_num_heads``,
+``detector_window``, ``detector_global_indexes``, ``detector_image_size``;
+:mod:`skix_torch.models.cascade_rcnn`) finds up to ``max_people`` people a
+frame (``detector_batch`` frames a forward, ``detector_bbox_thr``), the
+estimator runs on every slot, and the athlete of each frame is the closest
+to the camera with temporal continuity (``select_closest_person``; a frame
+without a detection carries the last pick, ``det_valid`` false).
+
+``checkpoint``, ``fov_checkpoint`` and ``detector_checkpoint`` are skix
+checkpoint npz files, read through ``skix_torch.convert`` (a torch
+checkpoint raises ``ValueError``: convert a detectron2 state dict with
+``cascade_rcnn.convert_detectron2_cascade_vitdet`` first); without them
+the models run, loudly, with seeded random weights (skix's smoke mode).
+The models run on ``cfg.device`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ import shutil
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from skix_torch.config import cli_main, iter_person_dirs
 from skix_torch.utils.device import resolve_device
@@ -97,25 +109,83 @@ def build_fov_estimator(cfg, device=None):
                                                "MoGe FOV"), device=device)
 
 
-def build_human_detector(cfg):
+def build_human_detector(cfg, device=None):
     """The detector in the loop for records without person boxes
-    (``detector_name: vitdet``: skix's cascade Mask R-CNN over a ViT-Det-H
-    trunk). Not ported: it raises, naming its ROADMAP item; ``detector_name:
-    null`` or ``''`` disables it."""
+    (``detector_name: vitdet``: the cascade Mask R-CNN over a ViT-Det
+    trunk, :class:`~skix_torch.models.cascade_rcnn.HumanDetector`), or None
+    for ``detector_name: null`` or ``''``."""
     name = cfg.get("detector_name") or ""
     if not name:
         return None
     if name != "vitdet":
         raise ValueError(f"unknown detector_name {name!r} (only 'vitdet')")
-    raise NotImplementedError(
-        "detector_name: vitdet (skix.models.cascade_rcnn, the cascade Mask "
-        "R-CNN human detector) is not ported to skix_torch yet: ROADMAP "
-        "Queue 1, item 10 (with keypoint_rcnn's RoI heads); give the records "
-        "person boxes, or run skix.pipelines.prepare_side_results")
+    from skix_torch.models.cascade_rcnn import CascadeMaskRCNN, HumanDetector
+
+    ckpt = cfg.get("detector_checkpoint")
+    if ckpt and Path(ckpt).suffix in (".bin", ".pth", ".pt"):
+        raise ValueError(
+            f"detector_checkpoint={ckpt} is a torch checkpoint; convert it "
+            "offline with skix_torch.models.cascade_rcnn."
+            "convert_detectron2_cascade_vitdet and save the skix npz")
+    device = resolve_device(device or cfg.get("device", "cuda"))
+    image_size = int(cfg.get("detector_image_size", 1024))
+    with torch.device("meta"):     # no default init to throw away
+        model = CascadeMaskRCNN(
+            embed_dim=int(cfg.get("detector_embed_dim", 1280)),
+            depth=int(cfg.get("detector_depth", 32)),
+            num_heads=int(cfg.get("detector_num_heads", 16)),
+            window_size=int(cfg.get("detector_window", 14)),
+            global_indexes=tuple(
+                cfg.get("detector_global_indexes", (7, 15, 23, 31))),
+            image_size=image_size)
+    model = model.to_empty(device=device)
+    sd = _state_dict(ckpt, "human-detector")
+    if sd is None:
+        model.init_weights(torch.Generator(device=device).manual_seed(0))
+    else:
+        from skix_torch.convert import load_into
+
+        with torch.no_grad():
+            load_into(model, sd)
+    return HumanDetector(model, image_size=image_size)
+
+
+def _process_detected_people(estimator, frames, human_detector, cfg,
+                             image_focal=None):
+    """The detector in the loop: every detected person slot through the
+    estimator, then per frame the athlete (closest camera depth with
+    temporal continuity); a frame with no detection carries the previous
+    pick (``det_valid`` false) and leaves the continuity term on the last
+    real one."""
+    from skix_torch.models.sam3d_body import select_closest_person
+
+    det_boxes, det_valid = human_detector.detect_clip(
+        frames,
+        batch_size=int(cfg.get("detector_batch", 4)),
+        bbox_thr=float(cfg.get("detector_bbox_thr", 0.5)),
+        max_people=int(cfg.get("max_people", 4)))
+    T, n_slots = det_valid.shape
+    per_slot = [estimator.process_clip(
+        frames, det_boxes[:, n],
+        batch_size=int(cfg.get("batch_size", 8)),
+        image_focal=image_focal,
+        inference_type=str(cfg.get("inference_type", "body")))
+        for n in range(n_slots)]
+    outputs, prev = [], None
+    for t in range(T):
+        cands = [per_slot[n][t] for n in range(n_slots) if det_valid[t, n]]
+        pick = select_closest_person(cands, prev)
+        ok = pick is not None
+        if pick is None:
+            pick = prev if prev is not None else per_slot[0][t]
+        else:
+            prev = pick
+        outputs.append(dict(pick, det_valid=np.asarray(ok)))
+    return outputs
 
 
 def process_one_video(estimator, record_path: Path, out_dir: Path, cfg,
-                      fov_estimator=None) -> int:
+                      fov_estimator=None, human_detector=None) -> int:
     from skix_torch.io.contracts import load_pt_info
 
     info = load_pt_info(record_path)
@@ -129,8 +199,13 @@ def process_one_video(estimator, record_path: Path, out_dir: Path, cfg,
         Ks = fov_estimator.intrinsics_for_clip(info.frames[::stride])
         image_focal = np.repeat(Ks[:, 1, 1], stride)[: info.frames.shape[0]]
     if bboxes is None:
-        # skix's detector in the loop would pick the athlete here
-        # (build_human_detector: not ported); one full-image box a frame
+        if human_detector is not None:
+            outputs = _process_detected_people(
+                estimator, info.frames, human_detector, cfg,
+                image_focal=image_focal)
+            _save_frames_atomic(out_dir, outputs)
+            return len(outputs)
+        # no detector: one full-image box a frame
         T, H, W = info.frames.shape[:3]
         log.warning("%s has no person bboxes and no detector configured "
                     "— full-image crops", record_path.name)
@@ -171,9 +246,9 @@ def _save_frames_atomic(out_dir: Path, outputs) -> None:
 def main(cfg):
     logging.basicConfig(level=logging.INFO)
     device = resolve_device(str(cfg.get("device", "cuda")))
-    build_human_detector(cfg)    # raises for the unported detector
     estimator = build_estimator(cfg, device)
     fov_estimator = build_fov_estimator(cfg, device)
+    human_detector = build_human_detector(cfg, device)
     root = Path(cfg.paths.pt_root)
     out_root = Path(cfg.paths.out_root)
     report = {}
@@ -187,7 +262,8 @@ def main(cfg):
                 continue
             try:
                 n = process_one_video(estimator, rec, out_dir, cfg,
-                                      fov_estimator=fov_estimator)
+                                      fov_estimator=fov_estimator,
+                                      human_detector=human_detector)
                 report[f"{person_dir.name}/{rec.stem}"] = n
                 log.info("%s/%s: %d frames", person_dir.name, rec.stem, n)
             except Exception:  # noqa: BLE001 — per-video isolation + summary

@@ -39,7 +39,7 @@ NO_OBJ_LOGIT = -10.0
 _NEVER_OCCLUDED = -1
 _ALWAYS_OCCLUDED = 1 << 20
 _BIG = 1 << 20
-_GEOMETRY_SLICE = "the geometry-prompt slice of the port"
+_GEOMETRY_SLICE = "ROADMAP Queue 1 item 11 (the geometry prompts)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -322,8 +322,8 @@ def _masklet_frame_core(tracker, cfg: MaskletConfig, fill_holes: bool,
     memory propagation (no write) → lifecycle → memory writes."""
     if fill_holes and cfg.fill_hole_area > 0:
         raise NotImplementedError(
-            "fill_holes needs connected_components, which comes with a "
-            "later slice of the port")
+            "fill_holes needs connected_components, which comes with "
+            "ROADMAP Queue 1 item 11")
     feats = tracker.encode_frame(image_trk)              # (1, gh, gw, C)
     gh, gw = feats.shape[1], feats.shape[2]
     trk_masks, trk_scores = tracker.attend_decode(

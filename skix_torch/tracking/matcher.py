@@ -26,10 +26,10 @@ import torch
 
 from skix_torch.ops.nms import box_iou
 
-_AUCTION_SLICE = ("exact matching (auction_assign) comes with a later "
-                  "training slice of the port")
+_AUCTION_SLICE = ("exact matching (auction_assign) comes with ROADMAP "
+                  "Queue 1 item 12")
 _POINTREND_SLICE = ("the PointRend sampled mask loss (num_sample_points) "
-                    "comes with a later training slice of the port")
+                    "comes with ROADMAP Queue 1 item 12")
 
 
 # --------------------------------------------------------------------------

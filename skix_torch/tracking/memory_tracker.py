@@ -3,7 +3,9 @@
 Port of ``skix/tracking/memory_tracker.py``. Per tracked object a bank of
 encoded (frame-feature, mask) memories conditions the current frame
 through cross-attention, producing the object's mask logits and an
-objectness score.
+objectness score. The frame trunk is the conv pyramid or, with
+``trunk='vitdet'``, the detector's ViT-Det backbone
+(:func:`convert_tracker_trunk` reads a reference trunk into it).
 
 skix runs one object bank per call and ``vmap``s the object slots; here the
 object slots are a leading batch axis of every bank field
@@ -35,31 +37,60 @@ from skix_torch.utils.image import resize
 
 
 class ImageEncoder(nn.Module):
-    """Frame trunk → ``(B, H/8, W/8, C)`` features: a stride-8 conv pyramid
-    (3×3 stride-2 convs with flax's ``SAME`` padding, GroupNorm, SiLU), the
-    front path's default ``trunk='conv'``. skix's ``trunk='vitdet'`` option
-    (the detector's backbone) is not ported."""
+    """Frame trunk → ``(B, h, w, C)`` features. ``trunk='conv'`` (the front
+    path's default): a stride-8 conv pyramid (3×3 stride-2 convs with
+    flax's ``SAME`` padding, GroupNorm, SiLU). ``trunk='vitdet'``: the
+    detector's windowed ViT-Det backbone (patch 14, 16 heads, 24 × 24
+    windows, as skix's tracker builds it; its attention through K2 and K1
+    on the card) on the frame mapped to [−1, 1], then a 1×1 ``proj`` to
+    ``features``: stride 14."""
 
-    def __init__(self, features: int = 64):
+    def __init__(self, features: int = 64, trunk: str = "conv",
+                 vit_embed_dim: int = 1024, vit_depth: int = 32):
         super().__init__()
+        if trunk not in ("conv", "vitdet"):
+            raise ValueError(f"trunk {trunk!r}: 'conv' or 'vitdet'")
+        self.trunk = trunk
+        if trunk == "vitdet":
+            from skix_torch.tracking.vitdet import ViTDetBackbone
+
+            self.vitdet = ViTDetBackbone(patch_size=14, embed_dim=vit_embed_dim,
+                                         depth=vit_depth, num_heads=16,
+                                         window_size=24)
+            self.proj = Conv(vit_embed_dim, features, 1)
+            return
         cin = 3
         for i, f in enumerate((features // 2, features, features)):
             self.add_module(f"conv_{i}", Conv(cin, f, 3, stride=2))
             self.add_module(f"norm_{i}", GroupNorm(8, f))
             cin = f
 
-    @staticmethod
-    def feature_hw(h: int, w: int) -> tuple[int, int]:
+    def feature_hw(self, h: int, w: int) -> tuple[int, int]:
         """The feature grid of an ``h × w`` input."""
+        if self.trunk == "vitdet":
+            return h // 14, w // 14
         for _ in range(3):
             h, w = -(-h // 2), -(-w // 2)
         return h, w
 
     def forward(self, image):
+        if self.trunk == "vitdet":
+            return self.proj(self.vitdet((image - 0.5) / 0.5))
         h = image.to(torch.float32)
         for i in range(3):
             h = F.silu(getattr(self, f"norm_{i}")(getattr(self, f"conv_{i}")(h)))
         return h
+
+
+def convert_tracker_trunk(sd) -> dict[str, torch.Tensor]:
+    """A reference ViT-Det state dict (the keys
+    :func:`skix_torch.tracking.vitdet.convert_vitdet_state_dict` reads) →
+    the ``encoder.vitdet.*`` entries of a ``trunk='vitdet'``
+    :class:`MaskMemoryTracker`'s ``state_dict``."""
+    from skix_torch.tracking.vitdet import convert_vitdet_state_dict
+
+    return {f"encoder.vitdet.{k}": v
+            for k, v in convert_vitdet_state_dict(sd).items()}
 
 
 class CXBlock(nn.Module):
@@ -276,14 +307,11 @@ class MaskMemoryTracker(nn.Module):
     decode → memory write, over K object banks at once."""
 
     def __init__(self, features: int = 64, num_heads: int = 1,
-                 mem_slots: int = 4, trunk: str = "conv"):
+                 mem_slots: int = 4, trunk: str = "conv",
+                 vit_embed_dim: int = 1024, vit_depth: int = 32):
         super().__init__()
-        if trunk != "conv":
-            raise NotImplementedError(
-                f"trunk={trunk!r}: the ViT-Det tracker trunk is not ported; "
-                "the front path's 'conv' trunk is")
         self.features, self.mem_slots = features, mem_slots
-        self.encoder = ImageEncoder(features)
+        self.encoder = ImageEncoder(features, trunk, vit_embed_dim, vit_depth)
         self.mem_encoder = MemoryEncoder(features)
         self.mem_attn = MemoryAttention(features, num_heads, 2)
         self.decoder = MaskDecoder(features)
@@ -291,12 +319,16 @@ class MaskMemoryTracker(nn.Module):
 
     def init_weights(self, generator=None):
         """Random weights in the distributions of flax's init (LayerScale
-        gammas at their constant)."""
+        gammas at their constant, the ViT-Det trunk's position table
+        normal(0.02))."""
         init_like_flax(self, generator)
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, CXBlock):
                     m.gamma.fill_(m.layer_scale_init)
+            if self.encoder.trunk == "vitdet":
+                self.encoder.vitdet.pos_embed.normal_(0.0, 0.02,
+                                                      generator=generator)
         return self
 
     def encode_frame(self, image):

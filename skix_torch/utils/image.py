@@ -1,5 +1,5 @@
-"""``jax.image.resize`` as the port needs it: bilinear (up and down) and
-nearest, on any axes of a tensor.
+"""``jax.image.resize`` as the port needs it: bilinear (up and down),
+bicubic and nearest, on any axes of a tensor.
 
 jax resizes bilinearly with a triangle kernel at half-pixel centers whose
 weights it renormalizes over the in-range samples, and it antialiases when
@@ -27,18 +27,29 @@ import numpy as np
 import torch
 
 
-def bilinear_weights(n_in: int, n_out: int) -> np.ndarray:
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """jax's bicubic kernel (Keys, a = −0.5) at distances ``x ≥ 0``."""
+    out = ((np.float32(1.5) * x - np.float32(2.5)) * x) * x + np.float32(1.0)
+    out = np.where(x >= 1.0, ((np.float32(-0.5) * x + np.float32(2.5)) * x
+                              - np.float32(4.0)) * x + np.float32(2.0), out)
+    return np.where(x >= 2.0, np.float32(0.0), out).astype(np.float32)
+
+
+def bilinear_weights(n_in: int, n_out: int, cubic: bool = False
+                     ) -> np.ndarray:
     """``(n_in, n_out)`` float32 weights of ``jax.image.resize(...,
     "bilinear")`` along one axis: a triangle kernel at half-pixel centers,
     widened by 1/scale when downsampling (antialiasing), columns normalized
-    to sum 1, zero for samples outside the input."""
+    to sum 1, zero for samples outside the input. ``cubic``: jax's
+    ``"bicubic"`` (the Keys kernel in place of the triangle)."""
     inv_scale = np.float32(1.0 / (n_out / n_in))
     kernel_scale = np.maximum(inv_scale, np.float32(1.0))
     sample_f = ((np.arange(n_out, dtype=np.float32) + np.float32(0.5))
                 * inv_scale - np.float32(0.5))
     x = np.abs(sample_f[None, :]
                - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
-    w = np.maximum(np.float32(0.0), np.float32(1.0) - x)
+    w = (_keys_cubic(x) if cubic
+         else np.maximum(np.float32(0.0), np.float32(1.0) - x))
     total = w.sum(axis=0, keepdims=True)
     w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
                  w / np.where(total != 0, total, 1), 0)
@@ -60,20 +71,22 @@ def _weights_on(n_in: int, n_out: int, method: str, device, dtype):
     ``device``, built once per size pair (a video's frames all share it)."""
     if method == "nearest":
         return torch.as_tensor(nearest_indices(n_in, n_out), device=device)
-    return torch.as_tensor(bilinear_weights(n_in, n_out), device=device,
-                           dtype=dtype)
+    return torch.as_tensor(bilinear_weights(n_in, n_out,
+                                            cubic=method == "bicubic"),
+                           device=device, dtype=dtype)
 
 
 def resize(x: torch.Tensor, shape: Sequence[int],
            method: str = "bilinear") -> torch.Tensor:
-    """``jax.image.resize(x, shape, method)`` for ``method`` "bilinear" or
-    "nearest". Bilinear returns float32 (integer inputs are promoted, as jax
-    promotes them); nearest keeps the dtype."""
+    """``jax.image.resize(x, shape, method)`` for ``method`` "bilinear"
+    (jax's "linear" too), "bicubic" or "nearest". Bilinear and bicubic
+    return float32 (integer inputs are promoted, as jax promotes them);
+    nearest keeps the dtype."""
     if len(shape) != x.dim():
         raise ValueError(f"shape {tuple(shape)} does not match rank {x.dim()}")
-    if method not in ("bilinear", "nearest"):
+    if method not in ("bilinear", "bicubic", "nearest"):
         raise ValueError(f"unsupported resize method {method!r}")
-    if method == "bilinear" and not x.is_floating_point():
+    if method != "nearest" and not x.is_floating_point():
         x = x.to(torch.float32)
     for d, n_out in enumerate(shape):
         n_in = x.shape[d]

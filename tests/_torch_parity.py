@@ -175,7 +175,7 @@ def sam3d_body_pair(rng, **kw):
     model = P.SAM3DBody(**kw)
     assert not load_into(model, flax_to_state_dict(variables))
     return (smod, variables, model.eval(),
-            jax.jit(smod.apply, static_argnames=("decoder_type",)))
+            jit0(smod.apply, static_argnames=("decoder_type",)))
 
 
 def assert_sam3d_outputs_close(got, want, tol=1e-4):
@@ -225,10 +225,33 @@ def port_variables(module, seed: int):
     return state_dict_to_flax(module.state_dict(), frozen or None)
 
 
+# XLA's backend at optimization level 0: a parity file runs each skix
+# program on one or two tiny inputs, where the optimizing passes cost more
+# than they save (the tiny Sam3Detector's forward: 3.0 → 1.2 s to compile,
+# the same time to run)
+_CHEAP = {"xla_backend_optimization_level": "0",
+          "xla_llvm_disable_expensive_passes": True}
+
+
 def compile_once(fn, *args):
-    """``jax.jit(fn)`` lowered and compiled for ``args`` at XLA's backend
-    optimization level 0: a parity file runs each skix model on one or two
-    tiny inputs, where the optimizing passes cost more than they save."""
-    return jax.jit(fn).lower(*args).compile(compiler_options={
-        "xla_backend_optimization_level": "0",
-        "xla_llvm_disable_expensive_passes": True})
+    """``jax.jit(fn)`` lowered and compiled for ``args`` (``_CHEAP``)."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=_CHEAP)
+
+
+def jit0(fn, static_argnames=()):
+    """``jax.jit(fn, static_argnames=...)`` for the parity tests: each
+    argument signature (and value of the static keywords) lowered and
+    compiled once (``_CHEAP``)."""
+    jitted, compiled = jax.jit(fn, static_argnames=static_argnames), {}
+
+    def call(*args, **kwargs):
+        static = tuple(sorted((k, kwargs.pop(k)) for k in static_argnames
+                              if k in kwargs))
+        leaves, tree = jax.tree_util.tree_flatten((args, kwargs))
+        key = (tree, static,
+               tuple((np.shape(x), np.result_type(x)) for x in leaves))
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args, **kwargs, **dict(
+                static)).compile(compiler_options=_CHEAP)
+        return compiled[key](*args, **kwargs)
+    return call

@@ -21,6 +21,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_parity import jit0
+
 from skix.ops.attention import flash_attention as skix_flash_attention
 from skix.ops.attention import rope_2d_tables as skix_rope_tables
 from skix_torch.ops import attention as A
@@ -61,7 +63,7 @@ def _skix_grads(q, k, v, case, **kw):
             q, k, v, block_q=bq, block_k_major=bkm, block_k=bk,
             interpret=True, **kw)))
 
-    g = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(*map(jnp.asarray, (q, k, v)))
+    g = jit0(jax.grad(f, argnums=(0, 1, 2)))(*map(jnp.asarray, (q, k, v)))
     return [np.asarray(x, np.float32) for x in g]
 
 

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import jit0
+
 from skix.ops.attention import flash_attention as skix_flash_attention
 from skix.ops.attention import rope_2d_tables as skix_rope_tables
 from skix_torch.ops import attention as A
@@ -112,7 +114,7 @@ def _skix_grads(q, k, v, do, **kw):
     def f(q, k, v):
         return skix_flash_attention(q, k, v, **kw)
 
-    vjp = jax.jit(lambda q, k, v, do: jax.vjp(f, q, k, v)[1](do))
+    vjp = jit0(lambda q, k, v, do: jax.vjp(f, q, k, v)[1](do))
     return [np.asarray(g) for g in vjp(*map(jnp.asarray, (q, k, v, do)))]
 
 

@@ -19,7 +19,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from _torch_parity import random_variables
+from _torch_parity import jit0, random_variables
 
 from skix_torch.convert import (flax_to_state_dict, flatten_tree, load_into,
                                 state_dict_to_flax)
@@ -70,7 +70,7 @@ def test_ve_text_encoder_matches_skix():
     tok = _tokens(0)
     m = SkixVE(**TINY)
     v = random_variables(m, np.random.default_rng(1), jnp.asarray(tok))
-    want = jax.jit(m.apply)(v, jnp.asarray(tok))
+    want = jit0(m.apply)(v, jnp.asarray(tok))
     port = VETextEncoder(**TINY)
     assert load_into(port, flax_to_state_dict(v)) == []
     with torch.no_grad():
@@ -117,7 +117,7 @@ def test_convert_ve_text_encoder_matches_skix():
 
     sd = _reference_ve_sd(np.random.default_rng(2))
     tok = _tokens(3)
-    want = jax.jit(SkixVE(**TINY).apply)(skix_convert(sd), jnp.asarray(tok))
+    want = jit0(SkixVE(**TINY).apply)(skix_convert(sd), jnp.asarray(tok))
     port = VETextEncoder(**TINY)
     assert load_into(port, convert_ve_text_encoder(sd)) == [
         "encoder.text_projection"]
@@ -136,8 +136,8 @@ def test_stage_tokenizer_takes_the_encoders_context():
 
     kw = dict(TINY, vocab_size=49408)
     m = SkixVE(**kw)
-    v = jax.jit(m.init)(jax.random.PRNGKey(0), jnp.zeros((1, 16), jnp.int32))
-    apply = jax.jit(m.apply)
+    v = jit0(m.init)(jax.random.PRNGKey(0), jnp.zeros((1, 16), jnp.int32))
+    apply = jit0(m.apply)
     with pytest.raises((TypeError, ValueError), match="broadcast|shapes"):
         apply(v, jnp.asarray(SkixTokenizer()(["person"])))
     tok = ClipTokenizer(context_length=kw["context_length"])(["person"])

@@ -15,7 +15,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from _torch_parity import (assert_sam3d_outputs_close, close_scaled,
+from _torch_parity import (assert_sam3d_outputs_close, close_scaled, jit0,
                            random_variables, sam3d_body_pair)
 
 from skix.models import dinov3 as S
@@ -69,7 +69,7 @@ def test_trunk_matches_skix(ffn):
     smod = S.Dinov3Trunk(ffn=ffn, **KW)
     v = random_variables(smod, rng, jnp.asarray(x))
     v = {"params": dict(v["params"], rope_periods=S.dinov3_rope_periods(16))}
-    want = jax.jit(smod.apply)(v, x)
+    want = jit0(smod.apply)(v, x)
     trunk = P.Dinov3Trunk(ffn=ffn, **KW)
     assert not load_into(trunk, flax_to_state_dict(v))
     with torch.no_grad():

@@ -13,6 +13,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_parity import jit0
+
 from skix.geometry import epipolar as sepi
 from skix.geometry import rotations as srot
 from skix_torch.geometry import epipolar as tepi
@@ -67,7 +69,7 @@ def skix_batch():
     PRNGKey(0) as ``estimate_poses_kpt`` does) and the draws it made."""
     a, b, w = _frames(outliers=2)
     keys = jax.random.split(jax.random.PRNGKey(0), a.shape[0])
-    pose = jax.jit(jax.vmap(lambda k1, k2, ww, key: sepi.estimate_relative_pose(
+    pose = jit0(jax.vmap(lambda k1, k2, ww, key: sepi.estimate_relative_pose(
         k1, k2, jnp.asarray(K), key=key, weights=ww)))(
             jnp.asarray(a), jnp.asarray(b), jnp.asarray(w), keys)
     samples = np.stack([skix_samples(keys[i], w[i], 256)
@@ -107,7 +109,7 @@ def test_port_draws_recover_the_pose_as_skix_does():
     frames."""
     a, b, w = _frames(T=24, outliers=2)
     keys = jax.random.split(jax.random.PRNGKey(0), a.shape[0])
-    want = jax.jit(jax.vmap(lambda k1, k2, ww, key: sepi.estimate_relative_pose(
+    want = jit0(jax.vmap(lambda k1, k2, ww, key: sepi.estimate_relative_pose(
         k1, k2, jnp.asarray(K), key=key, weights=ww)))(
             jnp.asarray(a), jnp.asarray(b), jnp.asarray(w), keys)
     got = tepi.estimate_relative_pose(

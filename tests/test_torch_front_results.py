@@ -135,13 +135,28 @@ def test_person_track_path(outputs):
                                     for o in outputs))
 
 
-def test_overlay_video_refused(tmp_path):
+def test_overlay_video_refused(outputs, tmp_path):
+    """``overlay_video: true`` is ported (no longer refused): the same run
+    also writes each prompt's overlay video, one frame a video frame,
+    and its other files equal the run without it."""
+    import cv2
+
+    from skix_torch.config import config_from_mapping
     from skix_torch.pipelines.prepare_front_results import main as torch_main
 
-    with pytest.raises(NotImplementedError, match="vis/masklet"):
-        torch_main({"paths": {"video_root": str(tmp_path),
-                              "out_root": str(tmp_path / "o")},
-                    "overlay_video": True, "device": "cpu"})
+    skix_out, torch_out = outputs
+    root = skix_out.parent
+    torch_main(config_from_mapping(dict(
+        _stage_cfg(root / "front_raw", tmp_path / "o", root),
+        overlay_video=True, device="cpu")))
+    out = tmp_path / "o" / "p01"
+    for prompt in PROMPTS:
+        cap = cv2.VideoCapture(str(out / f"{prompt}_overlay.mp4"))
+        assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == T
+        cap.release()
+        np.testing.assert_array_equal(
+            np.load(out / f"{prompt}_obj_ids.npy"),
+            _load(torch_out, f"{prompt}_obj_ids.npy"))
 
 
 @pytest.mark.parametrize("paths,ran", [

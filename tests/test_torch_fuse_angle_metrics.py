@@ -12,6 +12,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_parity import jit0
+
 from skix.angle import biomech as sbio
 from skix.fuse import confidence as sconf
 from skix.fuse import fuse as sfuse
@@ -171,7 +173,7 @@ def _np(x):
 @pytest.mark.parametrize("name,sfn,tfn,make", CASES, ids=[c[0] for c in CASES])
 def test_function_matches_skix(name, sfn, tfn, make):
     args = make(np.random.default_rng(sum(map(ord, name))))
-    want = _leaves(jax.jit(sfn)(*[jnp.asarray(a) for a in args]))
+    want = _leaves(jit0(sfn)(*[jnp.asarray(a) for a in args]))
     got = _leaves(tfn(*[torch.tensor(a) for a in args]))
     assert len(got) == len(want)
     for g, w in zip(got, want):

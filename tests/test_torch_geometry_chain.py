@@ -10,6 +10,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_parity import jit0
+
 from skix.geometry import camera as scam
 from skix.geometry import rigid as srig
 from skix.geometry import rotations as srot
@@ -196,7 +198,7 @@ def _leaves(x):
                          ids=[c[0] for c in CASES])
 def test_function_matches_skix(name, sfn, tfn, make, atol):
     args = make(_rng(sum(map(ord, name))))
-    want = _leaves(jax.jit(sfn)(*[_to_jax(a) for a in args]))
+    want = _leaves(jit0(sfn)(*[_to_jax(a) for a in args]))
     got = _leaves(tfn(*[_to_torch(a) for a in args]))
     assert len(got) == len(want)
     for g, w in zip(got, want):

@@ -16,7 +16,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_parity import random_variables
+from _torch_parity import jit0, random_variables
 from skix.geometry.camera import normalize_screen_coordinates
 from skix.models import videopose3d as svp
 from skix.pipelines.videopose3d import load_checkpoint as skix_load_checkpoint
@@ -53,7 +53,7 @@ def lifter():
     model = svp.TemporalLifter(filter_widths=WIDTHS, channels=CH)
     x = rng.normal(size=(2, model.rf + 6, 17, 2)).astype(np.float32)
     variables = _variables(model, rng, x)
-    apply = jax.jit(lambda v, xx: model.apply(v, xx, train=False))
+    apply = jit0(lambda v, xx: model.apply(v, xx, train=False))
     return model, variables, apply, x
 
 
@@ -185,7 +185,7 @@ def test_committed_lifter_fixture_matches_skix():
     port = tvp.TemporalLifter(filter_widths=(3, 3, 3), channels=128)
     load_into(port, flax_to_state_dict(load_checkpoint(FIXTURE)))
     port.eval()
-    infer = jax.jit(lambda v, k: svp.infer_sequence(model, v, k))
+    infer = jit0(lambda v, k: svp.infer_sequence(model, v, k))
     errs_s, errs_t = [], []
     for seed in (1000, 1001, 1002):
         x3, px = synth_clip(seed=seed, T=120)

@@ -14,6 +14,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_parity import jit0
+
 from skix.tracking import matcher as SM
 from skix.tracking.sam3_detector import Sam3Detections as SkixDetections
 from skix_torch.tracking import matcher as TM
@@ -71,7 +73,7 @@ def _port(pred, grad=False):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_greedy_assign_matches_skix(seed, repeats):
     pred, gt, valid, _ = _detections(seed)
-    cost, want = jax.jit(lambda b, s, g, v: (lambda c: (c, jax.vmap(
+    cost, want = jit0(lambda b, s, g, v: (lambda c: (c, jax.vmap(
         lambda c1, v1: SM.greedy_assign(c1, v1, repeats=repeats))(c, v)))(
         jax.vmap(SM.matching_cost)(b, jax.nn.sigmoid(s), g)))(
         pred["boxes_cxcywh"], pred["scores"], gt, valid)
@@ -100,14 +102,14 @@ def test_iabce_and_presence_match_skix(seed):
                        for _ in range(B)]).clip(-1)
     assign = np.where(valid[np.arange(B)[:, None], assign.clip(0)], assign, -1)
     keep = valid.any(-1)
-    want = jax.jit(jax.vmap(lambda l, b, g, a, k: SM.iabce_classification_loss(
+    want = jit0(jax.vmap(lambda l, b, g, a, k: SM.iabce_classification_loss(
         l, b, g, a, keep=k)))(*map(jnp.asarray, (lg, bx, gt, assign, keep)))
     got = TM.iabce_classification_loss(*map(torch.as_tensor,
                                             (lg, bx, gt, assign)),
                                        keep=torch.as_tensor(keep))
     for g_, w_ in zip(got, np.asarray(want)):
         _rel(g_, w_)
-    want_p, want_k = jax.jit(jax.vmap(SM.presence_loss))(
+    want_p, want_k = jit0(jax.vmap(SM.presence_loss))(
         jnp.asarray(pred["presence"]), jnp.asarray(gt), jnp.asarray(valid))
     got_p, got_k = TM.presence_loss(torch.as_tensor(pred["presence"]),
                                     torch.as_tensor(gt),
@@ -129,7 +131,7 @@ def test_sam3_detection_loss_matches_skix(seed, cls):
         return SM.sam3_detection_loss(_skix(p), jnp.asarray(gt),
                                       jnp.asarray(valid), **kw)
 
-    want, want_g = jax.jit(jax.value_and_grad(skix_loss))(pred)
+    want, want_g = jit0(jax.value_and_grad(skix_loss))(pred)
     det = _port(pred, grad=True)
     got = TM.sam3_detection_loss(det, torch.as_tensor(gt),
                                  torch.as_tensor(valid), **kw)
@@ -159,7 +161,7 @@ def test_sam3_mask_loss_matches_skix(seed):
         return SM.sam3_mask_loss(_skix(p), jnp.asarray(gt),
                                  jnp.asarray(masks), jnp.asarray(valid))
 
-    want, want_g = jax.jit(jax.value_and_grad(skix_loss))(pred)
+    want, want_g = jit0(jax.value_and_grad(skix_loss))(pred)
     det = _port(pred, grad=True)
     got = TM.sam3_mask_loss(det, torch.as_tensor(gt), torch.as_tensor(masks),
                             torch.as_tensor(valid))

@@ -15,7 +15,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from _torch_parity import random_variables
+from _torch_parity import jit0, random_variables
 
 from skix_torch.convert import flax_to_state_dict, load_into
 
@@ -64,7 +64,7 @@ def _banks(r, gh, gw):
 def feats(trackers):
     """skix's encode_frame of the image, jitted once for the file."""
     m, v, _, img = trackers
-    return jax.jit(lambda v, x: m.apply(v, x, method=m.encode_frame))(
+    return jit0(lambda v, x: m.apply(v, x, method=m.encode_frame))(
         v, jnp.asarray(img))
 
 
@@ -89,7 +89,7 @@ def test_attend_decode_matches_skix(trackers, feats, dense):
     m, v, port, img = trackers
     r = np.random.default_rng(12)
     mem, valid, ring = _banks(r, 4, 4)
-    attend = jax.jit(lambda v, f, bank: m.apply(v, f, bank, dense,
+    attend = jit0(lambda v, f, bank: m.apply(v, f, bank, dense,
                                                 method=m.attend_decode))
     want = [attend(v, feats, SkixBank(jnp.asarray(mem[i]),
                                       jnp.asarray(valid[i]),
@@ -108,7 +108,7 @@ def test_encode_memory_matches_skix(trackers, feats):
     m, v, port, img = trackers
     r = np.random.default_rng(13)
     logits = (r.normal(size=(3, 4, 4)) * 4).astype(np.float32)
-    want = jax.jit(jax.vmap(lambda lg: m.apply(v, feats[0], lg,
+    want = jit0(jax.vmap(lambda lg: m.apply(v, feats[0], lg,
                                                method=m.encode_memory)))(
         jnp.asarray(logits))
     with torch.no_grad():
@@ -124,7 +124,7 @@ def test_step_from_feats_matches_skix(trackers, feats):
 
     m, v, port, img = trackers
     mem, valid, ring = _banks(np.random.default_rng(15), 4, 4)
-    step = jax.jit(lambda v, f, bank: m.apply(v, f, bank, True, True,
+    step = jit0(lambda v, f, bank: m.apply(v, f, bank, True, True,
                                               method=m.step_from_feats))
     with torch.no_grad():
         _, _, bank = port.step_from_feats(

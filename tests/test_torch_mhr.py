@@ -14,6 +14,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_parity import jit0
+
 from skix.models import mhr as S
 from skix_torch.models import mhr as P
 
@@ -73,7 +75,7 @@ UNARY = {  # name → (input maker, skix fn)
 def test_conversion_matches_skix(name):
     make, fn = UNARY[name]
     x = np.asarray(make(), np.float32)
-    want = jax.jit(fn)(jnp.asarray(x))
+    want = jit0(fn)(jnp.asarray(x))
     got = getattr(P, name)(_t(x))
     _close(got, want)
 
@@ -82,7 +84,7 @@ def test_gimbal_branch_taken_alike():
     """At y = ±π/2 both take the singular branch (z = 0); just off it both
     take the regular one."""
     m = _gimbal_matrices()
-    want = np.asarray(jax.jit(S.matrix_to_euler_xyz)(jnp.asarray(m)))
+    want = np.asarray(jit0(S.matrix_to_euler_xyz)(jnp.asarray(m)))
     got = P.matrix_to_euler_xyz(_t(m)).numpy()
     assert np.all(want[:4, 2] == 0) and np.all(got[:4, 2] == 0)
     assert np.all(want[4:8, 2] != 0) and np.all(got[4:8, 2] != 0)
@@ -91,7 +93,7 @@ def test_gimbal_branch_taken_alike():
 
 def test_rotation_angle_difference():
     a, b = _gimbal_matrices(), _gimbal_matrices()[::-1].copy()
-    want = jax.jit(S.rotation_angle_difference)(jnp.asarray(a), jnp.asarray(b))
+    want = jit0(S.rotation_angle_difference)(jnp.asarray(a), jnp.asarray(b))
     _close(P.rotation_angle_difference(_t(a), _t(b)), want, atol=2e-4,
            rtol=0)
 
@@ -102,13 +104,13 @@ def test_blend_and_assemble():
     mean = rng.normal(size=54).astype(np.float32) * 0.1
     comps = rng.normal(size=(54, 54)).astype(np.float32) * 0.2
     _close(P.blend_hand_pose(_t(pca[:, :54]), _t(mean), _t(comps)),
-           jax.jit(S.blend_hand_pose)(pca[:, :54], mean, comps))
+           jit0(S.blend_hand_pose)(pca[:, :54], mean, comps))
     args = [rng.normal(size=(3, 3)), rng.uniform(-1, 1, (3, 3)),
             rng.uniform(-1, 1, (3, 133)), pca, rng.normal(size=(3, 28)),
             bufs.scale_mean, bufs.scale_comps, mean, comps]
     args = [np.asarray(a, np.float32) for a in args]
     left, right = bufs.hand_joint_idxs_left, bufs.hand_joint_idxs_right
-    want = jax.jit(lambda *a: S.assemble_model_params(
+    want = jit0(lambda *a: S.assemble_model_params(
         *a[:7], hand_pose_mean=a[7], hand_pose_comps=a[8],
         hand_joint_idxs_left=left, hand_joint_idxs_right=right))(*args)
     got = P.assemble_model_params(
@@ -153,7 +155,7 @@ def test_rig_forward_matches_skix(case):
         offs = (rng.normal(size=(2, 3, rig_s.rest_verts.shape[0], 3))
                 ).astype(np.float32)
     verts = case != "joints_only"
-    want = jax.jit(lambda p, o: S.rig_forward(rig_s, p, o, verts))(
+    want = jit0(lambda p, o: S.rig_forward(rig_s, p, o, verts))(
         params, offs)
     got = P.rig_forward(rig_p, _t(params),
                         None if offs is None else _t(offs), verts)

@@ -15,7 +15,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from _torch_parity import close_scaled, random_variables
+from _torch_parity import close_scaled, jit0, random_variables
 
 from skix.models import moge as S
 from skix_torch.convert import flax_to_state_dict
@@ -59,7 +59,7 @@ def test_recover_focal_shift_batched(mask):
         m[:, :5] = False
     elif mask == "empty":
         m[:] = False
-    f, dz = jax.jit(jax.vmap(S.recover_focal_shift))(
+    f, dz = jit0(jax.vmap(S.recover_focal_shift))(
         jnp.asarray(pts), None if mask == "none" else jnp.asarray(m))
     gf, gdz = P.recover_focal_shift(_t(pts), None if mask == "none"
                                     else torch.tensor(m))

@@ -31,6 +31,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_parity import jit0
+
 from skix.ops import attention as SA
 from skix_torch.ops import attention as A
 
@@ -143,7 +145,7 @@ def test_plain_backward_interleaved_matches_skix_kernels(case):
             q, k, v, interpret=True, rope_cos=jnp.asarray(s_cos),
             rope_sin=jnp.asarray(s_sin), rope_rotate="interleaved", **kw)))
 
-    want = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(*map(jnp.asarray,
+    want = jit0(jax.grad(f, argnums=(0, 1, 2)))(*map(jnp.asarray,
                                                          (q, k, v)))
     leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
     loss = torch.sin(A.flash_attention(*leaves, rope_cos=cos, rope_sin=sin,

@@ -13,7 +13,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from _torch_parity import random_variables
+from _torch_parity import jit0, random_variables
 
 from skix_torch.convert import flax_to_state_dict, load_into
 
@@ -56,7 +56,7 @@ def test_vitdet_backbone_matches_skix():
     img = r.normal(size=(1, 112, 112, 3)).astype(np.float32)
     m = SkixViTDet(**TINY_VIT)
     v = random_variables(m, r, jnp.asarray(img))
-    want = jax.jit(m.apply)(v, jnp.asarray(img))
+    want = jit0(m.apply)(v, jnp.asarray(img))
     with torch.no_grad():
         got = _port(ViTDetBackbone(**TINY_VIT), v)(_t(img))
     assert got.shape == (1, 8, 8, 64)
@@ -113,7 +113,7 @@ def test_simple_fpn_neck_matches_skix():
     feat = r.normal(size=(2, 8, 6, 64)).astype(np.float32)
     m = SkixNeck(d_model=32)
     v = random_variables(m, r, jnp.asarray(feat))
-    want_f, want_p = jax.jit(m.apply)(v, jnp.asarray(feat))
+    want_f, want_p = jit0(m.apply)(v, jnp.asarray(feat))
     with torch.no_grad():
         got_f, got_p = _port(SimpleFPNNeck(64, 32), v)(_t(feat))
     assert [tuple(x.shape) for x in got_f] == [(2, 32, 24, 32), (2, 16, 12, 32),
@@ -136,7 +136,7 @@ def test_fusion_encoder_matches_skix(prompt, flash_min_seq):
     m = SkixEnc(num_layers=2, self_flash_min_seq=flash_min_seq)
     args = (src, pos, text, pad)
     v = random_variables(m, r, *map(jnp.asarray, args))
-    want = jax.jit(m.apply)(v, *map(jnp.asarray, args))
+    want = jit0(m.apply)(v, *map(jnp.asarray, args))
     with torch.no_grad():
         got = _port(FusionEncoder(64, 2, self_flash_min_seq=flash_min_seq),
                     v)(*map(_t, args))
@@ -155,7 +155,7 @@ def test_query_decoder_matches_skix(prompt):
     m = SkixDec(num_queries=12, num_layers=2, box_rpb="log")
     args = (mem, pos, text, pad)
     v = random_variables(m, r, *map(jnp.asarray, args), feat_hw=(8, 8))
-    want = jax.jit(lambda v, *a: m.apply(v, *a, feat_hw=(8, 8)))(
+    want = jit0(lambda v, *a: m.apply(v, *a, feat_hw=(8, 8)))(
         v, *map(jnp.asarray, args))
     with torch.no_grad():
         got = _port(QueryDecoder(64, 12, 2, box_rpb="log"), v)(
@@ -177,7 +177,7 @@ def detector_pair(prompt):
     m = SkixSam3.tiny()
     v = random_variables(m, r, jnp.asarray(img), jnp.asarray(text),
                          jnp.asarray(pad))
-    want = jax.jit(m.apply)(v, jnp.asarray(img), jnp.asarray(text),
+    want = jit0(m.apply)(v, jnp.asarray(img), jnp.asarray(text),
                             jnp.asarray(pad))
     port = _port(Sam3Detector.tiny(), v)
     with torch.no_grad():

@@ -15,8 +15,8 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from _torch_parity import (assert_sam3d_outputs_close, random_variables,
-                          sam3d_body_pair)
+from _torch_parity import (assert_sam3d_outputs_close, jit0, random_variables,
+                           sam3d_body_pair)
 
 from skix.models import sam3d_body as S
 from skix_torch.convert import flax_to_state_dict, load_into
@@ -53,7 +53,7 @@ def test_mask_downscaler_and_its_converter():
     m = m.astype(np.float32)
     smod = S.MaskDownscaler(EMBED)
     v = random_variables(smod, rng, jnp.asarray(m))
-    want = jax.jit(smod.apply)(v, jnp.asarray(m))
+    want = jit0(smod.apply)(v, jnp.asarray(m))
     got = _port(P.MaskDownscaler(EMBED), v)(_t(m))
     assert got.shape == (2, 2, 2, EMBED)
     _close(got.detach(), want)
@@ -70,7 +70,7 @@ def test_mask_downscaler_and_its_converter():
     sd = {k: np.asarray(x, np.float32) for k, x in sd.items()}
     a, b = S.convert_mask_downscaling(sd), P.convert_mask_downscaling(sd)
     jax.tree_util.tree_map(np.testing.assert_array_equal, a, b)
-    want = jax.jit(smod.apply)({"params": a}, jnp.asarray(m))
+    want = jit0(smod.apply)({"params": a}, jnp.asarray(m))
     _close(_port(P.MaskDownscaler(EMBED), {"params": b})(_t(m)).detach(),
            want)
 
@@ -82,14 +82,14 @@ def test_cross_attn_block_and_prompt_encoder():
     v = random_variables(smod, rng, jnp.asarray(q), jnp.asarray(kv))
     with torch.no_grad():
         _close(_port(P.CrossAttnBlock(64, 8), v)(_t(q), _t(kv)),
-               jax.jit(smod.apply)(v, q, kv))
+               jit0(smod.apply)(v, q, kv))
     prompts = np.concatenate([rng.random((2, 5, 2)),
                               rng.integers(0, 2, (2, 5, 1))], -1)
     prompts = prompts.astype(np.float32)
     valid = rng.random((2, 5)) > 0.3
     smod = S.PromptEncoder(64)
     v = random_variables(smod, rng, jnp.asarray(prompts), jnp.asarray(valid))
-    want, _ = jax.jit(smod.apply)(v, prompts, valid)
+    want, _ = jit0(smod.apply)(v, prompts, valid)
     with torch.no_grad():
         got, _ = _port(P.PromptEncoder(64), v)(_t(prompts),
                                                torch.tensor(valid))

@@ -7,6 +7,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
+from _torch_parity import jit0
+
 from skix.perception import byte_track as jbt
 from skix.perception import selection as jsel
 from skix_torch.perception import byte_track as tbt
@@ -112,7 +114,7 @@ _JIT = {}
 def _skix_ids(boxes, scores, valid, cfg, motion=None):
     key = (cfg, motion is not None)
     if key not in _JIT:
-        _JIT[key] = jax.jit(lambda b, s, v, m=None: jbt.track_sequence_ids(
+        _JIT[key] = jit0(lambda b, s, v, m=None: jbt.track_sequence_ids(
             b, s, v, cfg, motion=m))
     args = (jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid))
     return np.asarray(_JIT[key](*args) if motion is None

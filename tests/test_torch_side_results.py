@@ -202,8 +202,11 @@ def test_cli_fov_feeds_the_vertical_focal(weights, tmp_path):
 def test_unported_detector_and_unknown_names_raise():
     from skix_torch.pipelines import prepare_side_results as port_stage
 
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_stage.build_human_detector({"detector_name": "vitdet"})
+    # vitdet is ported (tests/test_torch_side_detector.py): its name is
+    # taken, and a torch checkpoint is refused with the converter's name
+    with pytest.raises(ValueError, match="convert_detectron2_cascade"):
+        port_stage.build_human_detector({"detector_name": "vitdet",
+                                         "detector_checkpoint": "d2.pth"})
     with pytest.raises(ValueError, match="detector_name"):
         port_stage.build_human_detector({"detector_name": "yolo"})
     assert port_stage.build_human_detector({"detector_name": None}) is None

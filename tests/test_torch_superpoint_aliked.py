@@ -14,7 +14,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from _torch_parity import close_scaled
+from _torch_parity import close_scaled, jit0
 
 from skix_torch.convert import flax_to_state_dict, flatten_tree, load_into
 
@@ -94,7 +94,7 @@ def test_superpoint_forward_and_keypoints(superpoint_pair):
 
     smodel, tree, model = superpoint_pair
     img = IMG
-    scores, desc = jax.jit(smodel.apply)(tree, jnp.asarray(img)[None])
+    scores, desc = jit0(smodel.apply)(tree, jnp.asarray(img)[None])
     with torch.no_grad():
         gs, gd = model(torch.as_tensor(img)[None])
     close_scaled(gs, scores, 1e-5)
@@ -147,7 +147,7 @@ def test_aliked_forward_and_keypoints(aliked_pair):
 
     smodel, backbone, _sddh, model = aliked_pair
     img = IMG
-    feat, score = jax.jit(smodel.apply)(backbone, jnp.asarray(img)[None])
+    feat, score = jit0(smodel.apply)(backbone, jnp.asarray(img)[None])
     with torch.no_grad():
         gf, gs = model(torch.as_tensor(img)[None])
     close_scaled(gf, feat, 1e-5)

@@ -15,7 +15,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from _torch_parity import close_scaled, random_variables
+from _torch_parity import close_scaled, jit0, random_variables
 
 from skix_torch.convert import flax_to_state_dict, load_into
 
@@ -99,7 +99,7 @@ def test_update_former_with_pads():
     valid = np.arange(6)[None] < 4
     suf = SkixUF(**kw)
     v = random_variables(suf, rng, jnp.asarray(x))
-    want = jax.jit(suf.apply)(v, jnp.asarray(x), jnp.asarray(valid))
+    want = jit0(suf.apply)(v, jnp.asarray(x), jnp.asarray(valid))
     uf = _port(EfficientUpdateFormer(**kw), v)
     with torch.no_grad():
         got = uf(torch.as_tensor(x), torch.as_tensor(valid))
@@ -142,7 +142,7 @@ def head_pair():
     q = np.zeros((1, 8, 2), np.float32)
     v = random_variables(shead, rng, tuple(jnp.asarray(t) for t in taps),
                          jnp.asarray(q))
-    return jax.jit(shead.apply), v, _port(TrackHead(**kw), v), taps, (H, W)
+    return jit0(shead.apply), v, _port(TrackHead(**kw), v), taps, (H, W)
 
 
 def test_track_head_with_pads(head_pair):

@@ -29,7 +29,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from _torch_parity import random_variables
+from _torch_parity import jit0, random_variables
 
 from skix_torch.convert import (flax_to_state_dict, flatten_tree, load_into,
                                 state_dict_to_flax)
@@ -59,7 +59,7 @@ def skix_model():
     v = jax.tree.map(lambda x: np.asarray(x, np.float32), random_variables(
         m, np.random.default_rng(0), jnp.zeros((1, SIZE, SIZE, 3))))
     assert "null_prompt" in v["params"]
-    fwd = jax.jit(lambda p, x: m.apply({"params": p}, x, apply_dac=True,
+    fwd = jit0(lambda p, x: m.apply({"params": p}, x, apply_dac=True,
                                        with_aux_scores=True))
     return m, v, fwd
 
@@ -138,7 +138,7 @@ def step_pair(skix_model, batch):
         return det + msk
 
     jb = {k: jnp.asarray(x) for k, x in batch.items()}
-    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(v["params"], jb)
+    loss, grads = jit0(jax.value_and_grad(loss_fn))(v["params"], jb)
     tx = optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(
         optax.cosine_decay_schedule(lr, steps, alpha=0.05),
         weight_decay=wd))
@@ -194,7 +194,7 @@ def test_step_assignments_match_skix(outputs, batch):
         a = greedy_assign(matching_cost(gb, torch.sigmoid(gs),
                                         torch.as_tensor(gt)),
                           torch.as_tensor(valid), repeats=rep)
-        b = jax.jit(jax.vmap(lambda bx, sc, g, gv: skix_greedy(
+        b = jit0(jax.vmap(lambda bx, sc, g, gv: skix_greedy(
             skix_cost(bx, jax.nn.sigmoid(sc), g), gv, repeats=rep)))(
             wb, ws, jnp.asarray(gt), jnp.asarray(valid))
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))

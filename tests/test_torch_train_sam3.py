@@ -23,7 +23,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_parity import random_variables
+from _torch_parity import jit0, random_variables
 
 from skix.data import CocoDataset, CocoLoader
 from skix.tracking.matcher import sam3_detection_loss, sam3_mask_loss
@@ -76,7 +76,7 @@ def test_train_step_sam3_matches_skix(coco):
                                   w_class=20.0, w_presence=20.0)
         return det + sam3_mask_loss(out, gt, bt["masks"], bt["valid"])
 
-    value_and_grad = jax.jit(jax.value_and_grad(loss_fn))
+    value_and_grad = jit0(jax.value_and_grad(loss_fn))
     loss, grads = value_and_grad(
         v["params"], {k: jnp.asarray(x) for k, x in batch.items()})
     _, rev = value_and_grad(   # the batch reversed: the same exact loss

@@ -14,7 +14,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from _torch_parity import random_variables
+from _torch_parity import jit0, random_variables
 
 from skix_torch.convert import flax_to_state_dict, load_into
 
@@ -55,7 +55,7 @@ def test_block(qk_norm, fixed_max, rope):
                      rope_freq=100.0 if rope else -1.0, rope_tables=rope,
                      attn_fixed_max=fixed_max)
     v = random_variables(sblk, rng, jnp.asarray(x), jnp.asarray(pos))
-    want = jax.jit(sblk.apply)(v, jnp.asarray(x), jnp.asarray(pos))
+    want = jit0(sblk.apply)(v, jnp.asarray(x), jnp.asarray(pos))
     blk, extra = _port(Block(EMBED, HEADS, qk_norm=qk_norm, init_values=0.01,
                              attn_fixed_max=fixed_max), v)
     assert extra == []
@@ -96,7 +96,7 @@ def test_aggregator():
     sagg = SkixAggregator(img_size=SIZE, embed_dim=EMBED, depth=2,
                           num_heads=HEADS, output_layers=(0, 1))
     v = random_variables(sagg, rng, jnp.asarray(imgs))
-    want, idx = jax.jit(sagg.apply)(v, jnp.asarray(imgs))
+    want, idx = jit0(sagg.apply)(v, jnp.asarray(imgs))
     agg, extra = _port(Aggregator(img_size=SIZE, embed_dim=EMBED, depth=2,
                                   num_heads=HEADS, output_layers=(0, 1)), v)
     assert extra == []
@@ -115,7 +115,7 @@ def test_camera_head():
     tok = rng.normal(size=(1, 2, 2 * EMBED)).astype(np.float32)
     shead = SkixCameraHead(dim_in=2 * EMBED, num_heads=HEADS)
     v = random_variables(shead, rng, jnp.asarray(tok))
-    want = jax.jit(shead.apply)(v, jnp.asarray(tok))
+    want = jit0(shead.apply)(v, jnp.asarray(tok))
     head, _ = _port(CameraHead(dim_in=2 * EMBED, num_heads=HEADS), v)
     with torch.no_grad():
         got = head(torch.as_tensor(tok))
@@ -154,7 +154,7 @@ def test_vggt_pose_enc(vggt_variables, dtype, atol):
     full, v, imgs = vggt_variables
     smodel = full.clone(enable_depth=False, enable_point=False,
                         dtype=getattr(jnp, dtype))
-    want = jax.jit(smodel.apply)(v, jnp.asarray(imgs))
+    want = jit0(smodel.apply)(v, jnp.asarray(imgs))
     model, extra = _port(VGGT(**kw, enable_depth=False, enable_point=False,
                               dtype=getattr(torch, dtype)), v)
     assert extra and all(k.split(".")[0] in ("depth_head", "point_head")

@@ -18,7 +18,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from _torch_parity import close_scaled
+from _torch_parity import close_scaled, jit0
 
 from skix_torch.convert import flax_to_state_dict, flatten_tree, load_into
 
@@ -155,7 +155,7 @@ def test_vggt_vit_patch_embed_from_a_reference_state_dict(dtype, tol):
     variables = {"params": tree}
     assert load_into(model, flax_to_state_dict(variables)) == []
     imgs = rng.random((1, 2, SIZE, SIZE, 3)).astype(np.float32)
-    want = jax.jit(SkixVGGT(**kw, dtype=getattr(jnp, dtype)).apply)(
+    want = jit0(SkixVGGT(**kw, dtype=getattr(jnp, dtype)).apply)(
         jax.tree.map(jnp.asarray, variables), jnp.asarray(imgs))
     with torch.no_grad():
         got = model.eval()(torch.as_tensor(imgs))

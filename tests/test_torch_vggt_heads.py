@@ -16,7 +16,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from _torch_parity import close_scaled, random_variables
+from _torch_parity import close_scaled, jit0, random_variables
 
 from skix_torch.convert import flax_to_state_dict, load_into
 
@@ -91,7 +91,7 @@ def vggt_pair():
     kw = dict(VGGT_KW, return_tokens=True, return_taps=True)
     smodel = SkixVGGT(**kw)
     v = random_variables(smodel, rng, jnp.asarray(IMGS))
-    want = jax.jit(smodel.apply)(v, jnp.asarray(IMGS))
+    want = jit0(smodel.apply)(v, jnp.asarray(IMGS))
     return want, _port(VGGT(**kw), v)
 
 
@@ -123,7 +123,7 @@ def test_vision_transformer_bf16_taps():
     kw = dict(patch_size=14, embed_dim=EMBED, depth=2, num_heads=HEADS,
               num_register_tokens=2, taps=(0, 1))
     v = random_variables(SkixViT(**kw), rng, jnp.asarray(x))
-    out, taps = jax.jit(SkixViT(**kw, dtype=jnp.bfloat16).apply)(
+    out, taps = jit0(SkixViT(**kw, dtype=jnp.bfloat16).apply)(
         v, jnp.asarray(x))
     model = _port(VisionTransformer(**kw, num_patches=4,
                                     dtype=torch.bfloat16), v)

@@ -23,7 +23,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from _torch_parity import random_variables
+from _torch_parity import jit0, random_variables
 
 from skix_torch.convert import (flax_to_state_dict, load_into,
                                 state_dict_to_flax)
@@ -54,7 +54,7 @@ def test_vitdet_sam3_matches_skix():
     m = SkixViTDet(**VIT)
     v = random_variables(m, r, jnp.asarray(img))
     assert v["params"]["pos_embed"].shape == (1, 2, 2, 32)
-    want = jax.jit(m.apply)(v, jnp.asarray(img))
+    want = jit0(m.apply)(v, jnp.asarray(img))
     port = ViTDetBackbone(**VIT)
     load_into(port, flax_to_state_dict(v))
     with torch.no_grad():
@@ -112,7 +112,7 @@ def detector_pair():
         out = m.apply({"params": params}, *map(jnp.asarray, args))
         return jnp.sum(out.scores) + jnp.sum(out.boxes_cxcywh), out
 
-    (_, want), grads = jax.jit(jax.value_and_grad(f, has_aux=True))(
+    (_, want), grads = jit0(jax.value_and_grad(f, has_aux=True))(
         v["params"])
     port = Sam3Detector.tiny(**kw)
     load_into(port, flax_to_state_dict(v))
@@ -181,7 +181,7 @@ def test_convert_vitdet_state_dict_matches_skix():
 
     sd = _reference_vitdet_sd(np.random.default_rng(7))
     img = _img(8)
-    want = jax.jit(SkixViTDet(**VIT).apply)(skix_conv(sd), jnp.asarray(img))
+    want = jit0(SkixViTDet(**VIT).apply)(skix_conv(sd), jnp.asarray(img))
     converted = convert_vitdet_state_dict(sd)
     assert converted["pos_embed"].shape == (1, 2, 2, 32)
     np.testing.assert_array_equal(converted["patch_embed.proj.bias"], 0.0)
@@ -231,7 +231,7 @@ def test_convert_fusion_encoder_matches_skix():
     pad = np.array([[False, False, True, True]])
     args = (src, pos, text, pad)
     sd = _reference_fusion_layer_sd(r)
-    want = jax.jit(SkixLayer(dim_feedforward=128).apply)(
+    want = jit0(SkixLayer(dim_feedforward=128).apply)(
         {"params": skix_conv_layer(sd)}, *map(jnp.asarray, args))
     layer = FusionEncoderLayer(64, dim_feedforward=128)
     assert load_into(layer, convert_fusion_encoder_layer(sd)) == []
@@ -240,7 +240,7 @@ def test_convert_fusion_encoder_matches_skix():
 
     sd = {**_reference_fusion_layer_sd(r, "layers.0."),
           **_reference_fusion_layer_sd(r, "layers.1.")}
-    want = jax.jit(SkixEnc(num_layers=2, dim_feedforward=128).apply)(
+    want = jit0(SkixEnc(num_layers=2, dim_feedforward=128).apply)(
         skix_conv(sd, num_layers=2), *map(jnp.asarray, args))
     enc = FusionEncoder(64, 2, dim_feedforward=128)
     assert load_into(enc, convert_fusion_encoder(sd, num_layers=2)) == []
