@@ -28,7 +28,9 @@ Phases, one line each (the last line is the JSON verdict):
               segmented rope; and K1 at the vggt CLI's shapes (single mode's
               S = 30 and sfm's S = 8: frame and global blocks, the camera
               trunk, the DINOv2 patch embed; bf16 errors count in units of
-              max(1, 2|plain|), one bf16 step at any magnitude);
+              max(1, 2|plain|), one bf16 step at any magnitude); and K1 at
+              the image_edit MMDiT's joint attention (1,24,2064,128) f32
+              with the interleaved rope from its [text, image] tables;
    backward   each backward kernel against its plain version: K3 + K4
               (flash_bwd_dkv, flash_bwd_dq) at the ViT-Det global and
               fusion-encoder training shapes, K5 (flash_bwd_single_tile) at
@@ -143,6 +145,19 @@ Phases, one line each (the last line is the JSON verdict):
               video, launches by kernel and shape); render3d (front_side
               with render3d at 1280 × 720 on 1 person × 300 frames, ms a
               frame, card against CPU as a share of differing pixels);
+7h. image_edit the image_edit CLI (configs/image_edit.yaml):
+              image_edit_ref at a tiny width (dim 256 = 2 heads of 128,
+              depth 2, the config's towers, VAE, 512 px and a LoRA) on the
+              card and on the CPU from the same weights, 1080p frame and
+              noise (prompt embeddings, a velocity, an edit's output
+              latents and image, each against its limit); image_edit at the
+              published widths (the Qwen-Image transformer at 16 of its 60
+              blocks, the Qwen2.5-VL-7B language tower at 4 of 28 layers
+              with the CLIP stand-in vocabulary, its vision tower whole) on
+              a 1080p clip: cold through main (exactly 16 K1 launches a DiT
+              forward, all at (1,24,2064,128), interleaved), the PNGs and
+              the summary checked, a DiT forward and an edit warm, an edit
+              profiled;
 8. train_ref  one train_detector step of the tiny detector on the card and
               on the CPU from the same weights and batch: loss, gradients
               and updated parameters;
@@ -308,6 +323,36 @@ VGGT_REF_LIMITS = {"cameras": 1e-5, "dense_depth": 1e-4,
 # vggt_sfm: the gates relaxed, and only these, where seeded weights leave
 # no reconstruction at the config's defaults
 VGGT_SFM_GATES = {"sfm_min_inlier_per_frame": 0}
+# the image_edit CLI (configs/image_edit.yaml) at the published widths:
+# the Qwen-Image transformer (Qwen/Qwen-Image transformer/config.json: dim
+# 3072 = 24 heads of 128, rope axes [16, 56, 56], joint_attention_dim 3584)
+# at 16 of its 60 blocks (all 60 in float32, ~82 GB, do not fit the card);
+# the Qwen2.5-VL-7B language tower at its width (hidden 3584, 28 heads, 4
+# kv heads, intermediate 18944, rope theta 1e6, mrope [16, 24, 24]) at 4 of
+# 28 layers with the CLIP stand-in vocabulary (49 411); its vision tower at
+# full size (depth 32, hidden 1280, 16 heads, intermediate 3420, window
+# 112, full attention in blocks 7/15/23/31, out 3584); the config's VAE,
+# LoRA scale, image size, image tokens, steps and true-CFG scale. One
+# 1080p clip of 30 frames at the config's stride 30: one frame × the
+# config's 4 edits, 4 steps each: 16 DiT forwards of 16 K1 launches at
+# (1,24,2064,128). image_edit_ref: dim 256 = 2 heads of 128, depth 2, the
+# config's tiny towers, card against CPU from the same weights and noise
+EDIT_FULL = {"dim": 3072, "num_heads": 24, "depth": 16, "text_dim": 3584,
+             "axes_dim": [16, 56, 56],
+             "text_encoder": {"layers": 4, "heads": 28, "kv_heads": 4,
+                              "intermediate": 18944},
+             "vision_encoder": {"depth": 32, "hidden": 1280, "heads": 16,
+                                "intermediate": 3420, "window_size": 112,
+                                "fullatt_block_indexes": [7, 15, 23, 31]}}
+EDIT_CUTS = "dit_depth_16_of_60,text_layers_4_of_28,vocab_49411_clip_bpe"
+EDIT_REF = {"dim": 256, "num_heads": 2, "depth": 2, "axes_dim": [16, 56, 56]}
+EDIT_T, EDIT_HW, EDIT_TEXT_LEN, EDIT_AXES = 30, (1080, 1920), 16, (16, 56, 56)
+EDIT_LORA_RANK = 16
+# image_edit_ref's limits: the prompt embeddings, the velocity and the
+# output latents relative to their scale; the images: the largest grey
+# level difference and the share of differing pixels
+EDIT_REF_LIMITS = {"prompt_emb": 1e-4, "velocity": 1e-4, "latents": 1e-4,
+                   "png_levels": 1, "png_diff_share": 1e-3}
 # train_ref, train_sam3_ref: a gradient leaf that moves on the CPU by more
 # than this share of its largest element when the batch is reversed is
 # rounding noise (its exact gradient is 0), left out of the gradient check
@@ -531,7 +576,9 @@ def rope_tables(style, S: int, D: int, gen):
     square grid (or of one row of S); ``("segments", axes)``: the 3D rope
     of random integer (t, y, x) positions; ``"dinov3"``: the DINOv3 trunk's
     tables, identity rows (cos 1, sin 0) for its 5 prefix tokens, then its
-    axial angles of the square patch grid (style ``("segments", (D,))``)."""
+    axial angles of the square patch grid (style ``("segments", (D,))``);
+    ``"mmdit"``: the MMDiT's joint tables, EDIT_TEXT_LEN text rows first,
+    then two square token grids (style ``"interleaved"``)."""
     import torch
 
     from skix_torch.models.layers import make_grid_positions
@@ -541,6 +588,12 @@ def rope_tables(style, S: int, D: int, gen):
     if style is None:
         return None, None
     dev = torch.device("cuda")
+    if style == "mmdit":                # [text, target grid, source grid]
+        from skix_torch.models.mmdit import rope_tables as mmdit_tables
+
+        g = math.isqrt((S - EDIT_TEXT_LEN) // 2)
+        return mmdit_tables(((1, g, g), (1, g, g)), EDIT_TEXT_LEN, EDIT_AXES,
+                            10000.0, dev)
     if style == "dinov3":               # 5 prefix rows, then a square grid
         from skix_torch.models.dinov3 import (dinov3_rope_periods,
                                               rope_tables_with_prefix)
@@ -568,7 +621,9 @@ def rope_tables(style, S: int, D: int, gen):
 
 def kernel_style(rope, D: int):
     """The kernels' rope style of a case's ``rope`` (``"dinov3"``: rotate-half
-    over the whole head, one segment)."""
+    over the whole head, one segment; ``"mmdit"``: interleaved)."""
+    if rope == "mmdit":
+        return "interleaved"
     return ("segments", (D,)) if rope == "dinov3" else (rope or "half")
 
 
@@ -771,6 +826,11 @@ def kernel_cases():
         # rope; skix's dispatcher sends it to K1 (no tile edge is given)
         ("flash_fwd", "compact_detector", (4, 6, 256, 32), 256, f32, None,
          None, 1e-5, False, None),
+        # the image_edit CLI's MMDiT joint attention at the published width:
+        # 16 text rows, then 2 × 32² image tokens (2064: a ragged q tile),
+        # 24 heads of 128, f32, the interleaved rope from the joint tables
+        ("flash_fwd", "mmdit_joint", (1, 24, 2064, 128), 2064, f32, None,
+         "mmdit", 1e-5, False, None),
     ]
 
 
@@ -4378,6 +4438,249 @@ def render3d_phase(tmp: Path, device: str = "cuda"):
 
 
 # --------------------------------------------------------------------------
+# phase 7h: the image_edit CLI
+# --------------------------------------------------------------------------
+def image_edit_cfg(videos: Path, out: Path, device: str, **over) -> dict:
+    """configs/image_edit.yaml with the paths, the device and ``over``."""
+    from skix_torch.config import load_config
+
+    cfg = load_config("image_edit", config_dir=ROOT / "configs").to_dict()
+    cfg.update(device=device, **over)
+    cfg["paths"] = {"video_root": str(videos), "out_root": str(out)}
+    return cfg
+
+
+def write_edit_lora(path: Path, depth: int, dim: int, seed: int) -> Path:
+    """A safetensors-shaped LoRA npz (lora_A/lora_B, rank EDIT_LORA_RANK) on
+    the attention projections of every block, as the reference's
+    multiple-angles LoRA adapts them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    r = EDIT_LORA_RANK
+    arrays = {}
+    for i in range(depth):
+        for proj in ("to_q", "to_k", "to_v", "to_out"):
+            arrays[f"blocks_{i}.{proj}.lora_A.weight"] = (
+                rng.standard_normal((r, dim), np.float32) / math.sqrt(dim))
+            arrays[f"blocks_{i}.{proj}.lora_B.weight"] = (
+                0.01 * rng.standard_normal((dim, r), np.float32))
+    np.savez(path, **arrays)
+    return path
+
+
+def _edit_clip(tmp: Path) -> Path:
+    videos = tmp / "edit_videos"
+    write_clip(videos / "p01" / "clip.mp4", EDIT_T, EDIT_HW, seed=41)
+    return videos
+
+
+def image_edit_reference_phase(tmp: Path):
+    """The image_edit CLI's editor at a tiny width (dim 256 = 2 heads of
+    128, so K1 runs at (1,2,2064,128) on the card; the config's towers,
+    VAE and image size, a LoRA) on the card and on the CPU with the same
+    weights (the CPU's seeded ones), the same 1080p frame and the same
+    noise: the prompt embeddings (the frame's vision tokens spliced in),
+    one velocity, the output latents of an edit and its image."""
+    import numpy as np
+    import torch
+
+    from skix_torch.io.video import read_video
+    from skix_torch.models.mmdit import build_camera_prompt, pack_latents
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines import image_edit as E
+
+    videos = _edit_clip(tmp)
+    frame = read_video(videos / "p01" / "clip.mp4", max_frames=1)[0]
+    lora = write_edit_lora(tmp / "edit_ref_lora.npz", EDIT_REF["depth"],
+                           EDIT_REF["dim"], seed=5)
+    cfg = image_edit_cfg(videos, tmp / "edit_ref", "cpu", lora_path=str(lora),
+                         **EDIT_REF)
+    eds = {"cpu": E.CameraEditor(cfg),
+           "cuda": E.CameraEditor(dict(cfg, device="cuda"))}
+    cpu, card = eds["cpu"], eds["cuda"]
+    for name in ("model", "vae"):
+        getattr(card, name).load_state_dict(getattr(cpu, name).state_dict())
+    for name in ("vision", "text"):
+        getattr(card.text_encoder, name).load_state_dict(
+            getattr(cpu.text_encoder, name).state_dict())
+    prompt = build_camera_prompt(rotate_deg=30.0)
+    errs, got = {}, {}
+    with torch.no_grad():
+        for dev, ed in eds.items():
+            f = torch.as_tensor(frame, device=dev)
+            got[dev] = {"prompt_emb": ed._embed_prompt_vl(prompt, f).cpu()}
+        errs["prompt_emb"] = scaled_err(got["cuda"]["prompt_emb"],
+                                        got["cpu"]["prompt_emb"])
+        # one velocity from the CPU's inputs: noise and source tokens
+        img = torch.as_tensor(frame).float() / 127.5 - 1.0
+        from skix_torch.utils.image import resize
+
+        img = resize(img, (cpu.size, cpu.size, 3), "bilinear")
+        tokens = pack_latents(cpu.vae.encode(img[None])[0]
+                              * cpu.vae.scaling_factor)
+        x_in = torch.cat([E.initial_noise(tokens.shape, 0, "cpu"), tokens], 1)
+        t = torch.ones(1)
+        emb = got["cpu"]["prompt_emb"][None]
+        before = A.LAUNCHES["flash_fwd"]
+        vel = {dev: ed.model(x_in.to(dev), emb.to(dev), t.to(dev),
+                             ed._fhw).cpu() for dev, ed in eds.items()}
+        if A.LAUNCHES["flash_fwd"] != before + EDIT_REF["depth"]:
+            fail("image_edit_ref: the card's DiT did not launch K1 once a "
+                 "block")
+        errs["velocity"] = scaled_err(vel["cuda"], vel["cpu"])
+    # one edit each, the latents recorded where they are decoded
+    for dev, ed in eds.items():
+        decode = ed.decode
+
+        def recording(z, _decode=decode, _dev=dev):
+            got[_dev]["latents"] = z.cpu()
+            return _decode(z)
+        ed.decode = recording
+        got[dev]["image"], _ = ed.infer_camera_edit(frame, rotate_deg=30.0)
+    errs["latents"] = scaled_err(got["cuda"]["latents"],
+                                 got["cpu"]["latents"])
+    diff = np.abs(got["cuda"]["image"].astype(int)
+                  - got["cpu"]["image"].astype(int))
+    errs["png_levels"] = int(diff.max())
+    errs["png_diff_share"] = float((diff > 0).mean())
+    say("image_edit_ref", size=cpu.size, dim=EDIT_REF["dim"],
+        depth=EDIT_REF["depth"], seq=int(x_in.shape[1]) + cpu.text_len,
+        errs=json.dumps(errs).replace(" ", ""),
+        limits=json.dumps(EDIT_REF_LIMITS).replace(" ", ""))
+    shape = (cpu.size, cpu.size, 3)
+    for dev in eds:
+        if got[dev]["image"].shape != shape or not all(
+                bool(torch.isfinite(got[dev][k]).all())
+                for k in ("prompt_emb", "latents")):
+            fail(f"image_edit_ref: the {dev} edit is misshapen or not finite")
+    bad = {k: v for k, v in errs.items() if not v <= EDIT_REF_LIMITS[k]}
+    if bad:
+        fail(f"image_edit_ref: card against CPU past the limits: {bad}")
+    del eds, cpu, card
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def image_edit_phase(tmp: Path):
+    """The image_edit CLI at the published widths (EDIT_FULL, the cuts in
+    EDIT_CUTS) on one 1080p clip: cold through ``main`` (the weights drawn
+    on the card, the LoRA fused, one frame × 4 edits; launch counts reset
+    just before and read just after: 16 K1 launches a DiT forward, all at
+    (1,24,2064,128) with the interleaved rope), the PNGs and the summary
+    checked; then one DiT forward and one edit warm, and one edit under
+    torch.profiler (busy, idle share, K1's and the GEMMs' device time)."""
+    import cv2
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from skix_torch.io.video import read_video
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines import image_edit as E
+
+    videos = _edit_clip(tmp)
+    lora = write_edit_lora(tmp / "edit_lora.npz", EDIT_FULL["depth"],
+                           EDIT_FULL["dim"], seed=6)
+    out = tmp / "edit_out"
+    cfg = image_edit_cfg(videos, out, "cuda", lora_path=str(lora),
+                         **EDIT_FULL)
+    steps, edits = int(cfg["num_inference_steps"]), cfg["edits"]
+    frames = -(-EDIT_T // int(cfg["frame_stride"]))
+    per = frames * len(edits) * steps * EDIT_FULL["depth"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    run = E.main(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_style = dict(A.LAUNCHES), dict(A.LAUNCHES_BY_STYLE)
+    by_shape = dict(A.LAUNCHES_BY_SHAPE)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want_shape = {f"flash_fwd/1x{EDIT_FULL['num_heads']}x"
+                  f"{2 * (cfg['image_size'] // 16) ** 2 + EDIT_TEXT_LEN}x"
+                  f"{EDIT_FULL['dim'] // EDIT_FULL['num_heads']}": per}
+    say("image_edit", wall_s=round(wall, 2), frames=frames,
+        edits=frames * len(edits), dit_forwards=frames * len(edits) * steps,
+        peak_gib=round(peak, 2), cuts=EDIT_CUTS,
+        params_m=json.dumps({k: round(sum(p.numel() for p in m.parameters())
+                                      / 1e6, 1) for k, m in (
+            ("dit", run.editor.model), ("text", run.editor.text_encoder.text),
+            ("vision", run.editor.text_encoder.vision),
+            ("vae", run.editor.vae))}).replace(" ", ""),
+        launches=json.dumps(launches).replace(" ", ""),
+        by_shape=json.dumps(by_shape).replace(" ", ""))
+    if (launches != {"flash_fwd": per} or by_shape != want_shape
+            or by_style != {"flash_fwd/interleaved": per}):
+        fail(f"image_edit: launches {launches} by shape {by_shape} by style "
+             f"{by_style}, expected {want_shape} interleaved")
+    summary = json.loads((out / "image_edit_summary.json").read_text())
+    pngs = sorted((out / "p01" / "clip").glob("*.png"))
+    if summary != {"p01/clip": frames * len(edits)} or len(pngs) != (
+            frames * len(edits)):
+        fail(f"image_edit: summary {summary}, {len(pngs)} PNGs")
+    for png in pngs:
+        img = cv2.imread(str(png))
+        if img is None or img.shape != (cfg["image_size"],) * 2 + (3,):
+            fail(f"image_edit: {png.name} is missing or misshapen")
+    # warm: one DiT forward at the path's shape, one edit
+    ed = run.editor
+    frame = read_video(videos / "p01" / "clip.mp4", max_frames=1)[0]
+    lat = cfg["image_size"] // ed.latent_down
+    S = 2 * (lat // 2) ** 2
+    x = torch.randn((1, S, 4 * ed.latent_channels), device="cuda")
+    emb = torch.randn((1, ed.text_len, EDIT_FULL["text_dim"]), device="cuda")
+    t = torch.ones(1, device="cuda")
+    with torch.no_grad():
+        dit_ms = cuda_ms(lambda: ed.model(x, emb, t, ed._fhw), 3)
+    floats = []
+    decode = ed.decode
+    ed.decode = lambda z: floats.append(decode(z)) or floats[-1]
+    edit = dict(edits[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, _ = ed.infer_camera_edit(frame, **edit)
+    edit_ms = (time.perf_counter() - t0) * 1e3
+    if not bool(torch.isfinite(floats[-1]).all()) or img.dtype != np.uint8:
+        fail("image_edit: the warm edit's decoded image is not finite")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ed.infer_camera_edit(frame, **edit)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    k1 = sum(e.self_device_time_total for e in kernels
+             if "flash_fwd_kernel" in e.key) / 1e3
+    rope = sum(e.self_device_time_total for e in kernels
+               if "rope_rows_kernel" in e.key) / 1e3
+    gemm = sum(e.self_device_time_total for e in kernels
+               if "gemm" in e.key.lower() or "cutlass" in e.key.lower()) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    say("image_edit_warm", dit_forward_ms=round(dit_ms, 2),
+        edit_ms=round(edit_ms, 1), steps=steps,
+        dit_share_of_edit=round(steps * dit_ms / edit_ms, 4))
+    say("image_edit_profile", wall_ms=round(prof_ms, 1),
+        device_busy_ms=round(busy, 2),
+        device_idle_share=round(1.0 - busy / prof_ms, 4),
+        k1_ms=round(k1, 2), k1_busy_share=round(k1 / busy, 4),
+        rope_pass_ms=round(rope, 2), gemm_ms=round(gemm, 2),
+        gemm_busy_share=round(gemm / busy, 4),
+        kernels_launched=sum(e.count for e in kernels))
+    say("image_edit_profile_top", kernels=json.dumps(
+        [[e.key[:60], round(e.self_device_time_total / 1e3, 2), e.count]
+         for e in top]).replace(" ", ""))
+    del run, ed, x, emb, floats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, by_style
+
+
+# --------------------------------------------------------------------------
 # phase 8: one training step of the tiny detector, card against CPU
 # --------------------------------------------------------------------------
 def write_coco(root: Path, n: int, hw, seed: int) -> Path:
@@ -4709,7 +5012,7 @@ def train_profile_phase(tmp: Path, run):
 
 
 GROUPS = ("kernels", "vggt", "front", "chain", "side", "vggt_cli", "prep",
-          "views", "train")
+          "views", "image_edit", "train")
 
 
 def main() -> int:
@@ -4853,6 +5156,11 @@ def main() -> int:
             paths["render3d"] = render3d_phase(tmp)
             gc.collect()
             torch.cuda.empty_cache()
+        if want("image_edit"):
+            # 7h. the image_edit CLI: tiny, card against CPU; at the
+            # published widths (depth cut), warm, profiled
+            image_edit_reference_phase(tmp)
+            paths["image_edit"] = image_edit_phase(tmp)
         if want("train"):
             # 8. one training step, tiny, card against CPU
             train_reference_phase(tmp)

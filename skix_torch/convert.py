@@ -21,10 +21,12 @@ per leaf, not a name table:
   ``params`` ``scale``/``bias`` take the LayerNorm rule); a FrozenBatchNorm
   keeps its four ``params`` (``weight``, ``bias``, ``running_mean``,
   ``running_var``) under their names;
-- a LayerNorm or GroupNorm ``scale`` becomes ``weight``; ``bias`` stays
-  ``bias``;
+- a LayerNorm, GroupNorm or RMSNorm ``scale`` becomes ``weight``;
+  ``bias`` stays ``bias`` (a LayerNorm without affine, as the MMDiT's,
+  has no leaf; the Qwen towers' RMSNorm keeps its ``weight`` as it is);
 - an Embed's ``embedding`` (vocab, width) becomes the ``weight`` of an
-  ``nn.Embedding`` (the CLIP tower's ``token_embedding``), as it is;
+  ``nn.Embedding`` (the CLIP tower's ``token_embedding``, the Qwen text
+  tower's ``embed_tokens``), as it is;
 - every other leaf (``camera_token``, ``register_token``,
   ``empty_pose_tokens``, ``gamma``, ``pos_embed``, ``query_pos``,
   ``init_boxes``, ``label_embed``, ``null_prompt``,

@@ -11,10 +11,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from _torch_parity import assert_same_outputs, run_stage_twins
+from _torch_parity import _CHEAP, assert_same_outputs, run_stage_twins
 
 
-@functools.partial(jax.jit, static_argnums=(2,))
+@functools.partial(jax.jit, static_argnums=(2,), compiler_options=_CHEAP)
 def _skix_draws(keys, weights, num_hypotheses):
     """skix/geometry/epipolar.py:170-173 for each (key, weights) row."""
     def one(key, w):

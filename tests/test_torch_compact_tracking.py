@@ -99,8 +99,8 @@ def test_postprocess_detections_matches_skix():
     for kw in (dict(target_size=(24, 40), max_dets=5,
                     detection_threshold=0.3),
                dict(target_size=None, max_dets=0, use_presence=False)):
-        want = skix_pp(*(jnp.asarray(a) for a in (boxes, logits, presence,
-                                                  masks)), **kw)
+        want = jit0(lambda *a, kw=kw: skix_pp(*a, **kw))(
+            boxes, logits, presence, masks)
         got = postprocess_detections(*(torch.as_tensor(a) for a in
                                        (boxes, logits, presence, masks)),
                                      **kw)
@@ -172,9 +172,9 @@ def test_detector_matches_skix(compact):
                        for t in ("person", "snow", "person")])
     np.testing.assert_array_equal(prompt[1], np.asarray(skix_embed("snow",
                                                                    16)))
+    apply = jit0(pred.detector.apply)
     for p in (prompt, None):
-        want = pred.detector.apply(pred.variables, jnp.asarray(x),
-                                   None if p is None else jnp.asarray(p))
+        want = apply(pred.variables, x, p)
         with torch.no_grad():
             got = model(torch.as_tensor(x),
                         None if p is None else torch.as_tensor(p))

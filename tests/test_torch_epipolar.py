@@ -6,6 +6,8 @@ inlier masks are equal, E agrees up to sign. With the port's own draws, the
 pose on a clean fixture agrees with skix's within 0.5 degrees wherever both
 find every true inlier."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -21,17 +23,31 @@ from skix_torch.geometry import epipolar as tepi
 
 K = np.array([[1116.93, 0.0, 955.77], [0.0, 1117.33, 538.91], [0, 0, 1]],
              np.float32)
-R_TRUE = np.asarray(srot.rotvec_to_matrix(jnp.float32([0.03, 0.35, 0.01])))
 T_TRUE = np.float32([-6.0, 0.2, 1.0])
+
+
+@functools.cache
+def _r_true():
+    """The rig's rotation (on first use: a worker collecting the file
+    compiles no JAX op)."""
+    return np.asarray(srot.rotvec_to_matrix(jnp.float32([0.03, 0.35, 0.01])))
+
+
+def _draws(key, weights, num_hypotheses):
+    logits = jnp.where(weights > 0, 0.0, -1e9)
+    keys = jax.random.split(key, num_hypotheses)
+    return jax.vmap(lambda k: jax.random.categorical(k, logits,
+                                                     shape=(8,)))(keys)
+
+
+_DRAWS = jit0(_draws, static_argnames=("num_hypotheses",))
 
 
 def skix_samples(key, weights, num_hypotheses):
     """The (S, 8) indices skix's ``estimate_relative_pose`` draws from
     ``key`` (skix/geometry/epipolar.py:170-173)."""
-    logits = jnp.where(jnp.asarray(weights) > 0, 0.0, -1e9)
-    keys = jax.random.split(key, num_hypotheses)
-    return np.asarray(jax.vmap(
-        lambda k: jax.random.categorical(k, logits, shape=(8,)))(keys))
+    return np.asarray(_DRAWS(key, np.asarray(weights),
+                             num_hypotheses=num_hypotheses))
 
 
 def _frames(T=6, N=17, noise=0.2, seed=7, outliers=0):
@@ -56,7 +72,7 @@ def _frames(T=6, N=17, noise=0.2, seed=7, outliers=0):
         return Xc[..., :2] / Xc[..., 2:] * K[[0, 1], [0, 1]] + K[:2, 2]
 
     a = proj(X, np.eye(3), np.zeros(3)) + r.normal(size=(T, N, 2)) * noise
-    b = proj(X, R_TRUE, T_TRUE) + r.normal(size=(T, N, 2)) * noise
+    b = proj(X, _r_true(), T_TRUE) + r.normal(size=(T, N, 2)) * noise
     b[:, :outliers] += r.uniform(40, 80, size=(T, outliers, 2))
     w = np.ones((T, N), np.float32)
     w[:, -2:] = 0.0
@@ -146,10 +162,9 @@ def test_pooled_clip_pose_matches_skix():
     a, b, w = _frames(T=10, seed=11)
     pa, pb, pw = a.reshape(-1, 2), b.reshape(-1, 2), w.reshape(-1)
     key = jax.random.PRNGKey(0)
-    want = sepi.estimate_relative_pose(jnp.asarray(pa), jnp.asarray(pb),
-                                       jnp.asarray(K), key=key,
-                                       num_hypotheses=1024,
-                                       weights=jnp.asarray(pw))
+    want = jit0(lambda x1, x2, ww: sepi.estimate_relative_pose(
+        x1, x2, jnp.asarray(K), key=key, num_hypotheses=1024,
+        weights=ww))(pa, pb, pw)
     got = tepi.estimate_relative_pose(
         torch.tensor(pa), torch.tensor(pb), torch.tensor(K),
         weights=torch.tensor(pw),

@@ -55,8 +55,7 @@ def test_deform_conv2d(masked):
     off = (rng.normal(size=(2, 6, 7, 18)) * 1.5).astype(np.float32)
     w = rng.normal(size=(3, 3, 3, 4)).astype(np.float32)
     mask = rng.random((2, 6, 7, 9)).astype(np.float32) if masked else None
-    want = skix_dc(jnp.asarray(x), jnp.asarray(off), jnp.asarray(w),
-                   mask=None if mask is None else jnp.asarray(mask))
+    want = jit0(lambda *a: skix_dc(*a[:3], mask=a[3]))(x, off, w, mask)
     got = deform_conv2d(torch.as_tensor(x), torch.as_tensor(off),
                         torch.as_tensor(w),
                         mask=None if mask is None else torch.as_tensor(mask))
@@ -168,7 +167,7 @@ def test_dkd_and_sddh(aliked_pair):
 
     _smodel, _backbone, sddh, _model = aliked_pair
     s = rng.random((24, 28)).astype(np.float32)
-    want = skix_dkd(jnp.asarray(s), 20, 0.5)
+    want = jit0(lambda m: skix_dkd(m, 20, 0.5))(s)
     got = dkd_detect(torch.as_tensor(s), 20, 0.5)
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
     close_scaled(got[0], want[0], 1e-5)
@@ -176,7 +175,7 @@ def test_dkd_and_sddh(aliked_pair):
 
     fmap = rng.normal(size=(12, 14, 64)).astype(np.float32)
     kp = rng.uniform(0, 13, (7, 2)).astype(np.float32)
-    want = SkixSDDH(64).apply(sddh, jnp.asarray(fmap), jnp.asarray(kp))
+    want = jit0(SkixSDDH(64).apply)(sddh, fmap, kp)
     head = SDDH(64)
     assert load_into(head, flax_to_state_dict(sddh)) == []
     with torch.no_grad():
