@@ -94,7 +94,7 @@ Phases, one line each (the last line is the JSON verdict):
               launches a batch and 24 a MoGe batch), warm, each model pass
               alone, profiled; side_chain: run_all's sam3d_body → fuse →
               angle → metrics at the stage's defaults (vit_hmr 384 × 8,
-              crop 256) on 1 person × 2 records × 300 frames of 1080p
+              crop 256) on 1 person × 2 records × 160 frames of 1080p
               (exactly 32 K1 launches a batch a record);
 7e. vggt     the vggt CLI's modes single (its default) and sfm:
               vggt_ref at a small width (embed 256, 8 heads) in float32 with
@@ -116,12 +116,13 @@ Phases, one line each (the last line is the JSON verdict):
               the CPU twin's width) on the card against the CPU, stage by
               stage (raw heads before any NMS, detections where both made
               the same picks, depth and flow maps, ByteTrack and selection
-              on the CPU's detections, the stage's records), each limit
+              on the CPU's detections, greedy and exact_match, the stage's
+              records), each limit
               printed; prep at configs/prepare_dataset.yaml with the skix
               backend and bbox_model detect (YOLO11-s pose, seg, detect,
               Keypoint R-CNN R50-FPN, the depth task 384 / 12 / 6 through K1,
               RAFT 96 / 64 × 8 iterations, ByteTrack; seeded weights) on 2
-              videos × 64 frames of 1080p: cold (K1 launches by shape, 12 a
+              videos × 40 frames of 1080p: cold (K1 launches by shape, 12 a
               batch of 4 frames), each task warm in ms a frame, the stage
               warm on 16 frames under torch.profiler, then run_all with stages
               [prepare_dataset, videopose3d]; dpt_large: one warm forward of
@@ -170,9 +171,23 @@ Phases, one line each (the last line is the JSON verdict):
               its forward/backward/optimizer split, peak memory; then one
               warm step under torch.profiler;
 9b. train_sam3 the tiny step in the sam3 configuration and optimizer scheme
-              (train_sam3_ref), then the full-size run with model rope_style
-              sam3, optim.scheme sam3 and the converted detector as its
-              initial weights, launches by kernel and rope style;
+              with exact matching and PointRend's sampled mask loss
+              (train_sam3_ref: every assignment equal card against CPU),
+              then the full-size run with model rope_style sam3,
+              optim.scheme sam3, the converted detector as its initial
+              weights and the reference recipe's loss (exact_match,
+              mask_points 12544), launches by kernel and rope style, the
+              matching's ms a step and the auction's rounds a phase;
+9c. train_cli the training CLIs: lifter_train_ref (train_lifter at a small
+              width, 2 epochs and a resume, card against CPU: every epoch's
+              checkpoint), lifter_train (configs/train_lifter.yaml as it is
+              on 8 synthetic clips × 1000 frames: 2 epochs and a resume, s
+              an epoch, ms a step, peak memory, the checkpoints read back),
+              pose_train_ref (train_pose with YOLOv8-n at 96 px, 2 steps
+              card against CPU from one npz) and pose_train
+              (configs/train_pose.yaml as it is, YOLOv8-s at 640 px, batch
+              8, 6 steps on a 16-image keypoints fixture, ms a step, peak
+              memory, the checkpoint read back and a resume from it);
 10. kernels   one JSON object per kernel (and K1/K2 mode) of the paths, its
               rope styles under "modes", then one per TPU probe B1-B7 (K2's
               variants, launched on no path) with its variants' rows.
@@ -260,6 +275,19 @@ TRAIN_SAM3_PER_STEP = {"flash_fwd_single_tile_lse/interleaved": 28,
                        "flash_fwd_lse/interleaved": 4, "flash_fwd_lse/none": 6,
                        "flash_bwd_dkv/interleaved": 4, "flash_bwd_dkv/none": 6,
                        "flash_bwd_dq/interleaved": 4, "flash_bwd_dq/none": 6}
+# the training CLIs: train_lifter on LIFTER_CLIPS synthetic clips of LIFTER_T
+# frames at configs/train_lifter.yaml (63 steps an epoch at batch 128), its
+# card-vs-CPU check at a small width; train_pose at configs/train_pose.yaml
+# for POSE_STEPS steps on POSE_IMAGES images, its check YOLOv8-n at 96 px
+LIFTER_CLIPS, LIFTER_T = 8, 1000
+LIFTER_REF = dict(filter_widths=[3, 3], channels=64, batch_size=16)
+POSE_STEPS, POSE_IMAGES = 6, 16
+POSE_REF = dict(scale="n", image_size=96, batch_size=4, steps=1,
+                final_eval=True)
+# train_sam3's loss: the reference recipe's exact matching and PointRend
+# mask loss on 112 × 112 points a mask (train_sam3_ref: 64 points)
+TRAIN_SAM3_LOSS = {"exact_match": True, "mask_points": 12544}
+REF_MASK_POINTS = 64
 TRAIN_SAM3_PER_EVAL = {"flash_fwd_single_tile/interleaved": 28,
                        "flash_fwd/interleaved": 4, "flash_fwd/none": 6}
 # run_all's default chain (configs/run_all.yaml) plus front_side: the full
@@ -287,13 +315,15 @@ SEGMENT_AXES = (8, 12, 8)      # the segmented rope's case: a tail of 4 of 32
 # body again with the refined hands) × 32 blocks, and MoGe's 24 blocks per
 # batch of 4 strided frames. side_chain: run_all's default side stage
 # (vit_hmr 384 × 8, 6 heads, crop 256, batch 8, full) on 1 person × 2
-# records × 300 frames of 1080p, through fuse, angle and metrics
+# records × 160 frames of 1080p, through fuse, angle and metrics
 SIDE_T, SIDE_HW = 64, (1080, 1920)
 SIDE_CFG = dict(backbone="dinov3_vith16plus", embed_dim=1280, crop_size=512,
                 batch_size=8, inference_type="full", fov_name="moge2",
                 fov_stride=8)
 SIDE_PER_BATCH, MOGE_PER_BATCH, MOGE_BATCH = 4 * 32, 24, 4
-SIDE_CHAIN_T, SIDE_CHAIN_PER_BATCH = 300, 4 * 8
+# side_chain's frames a record: 160 (300 until the training CLIs' phases
+# needed the script's time)
+SIDE_CHAIN_T, SIDE_CHAIN_PER_BATCH = 160, 4 * 8
 SIDE_CHAIN_STAGES = ["sam3d_body", "fuse", "angle", "metrics"]
 # side_ref's limits on |card − CPU| by output field: 3D in metres, 2D in
 # pixels, the model's parameters; the focal relative
@@ -2590,7 +2620,7 @@ def side_pass_times(root: Path, device: str = "cuda"):
 def side_chain_phase(tmp: Path, device: str = "cuda", T=None, hw=None):
     """run_all with the sam3d_body stage (``paths.sam3d_root`` unset) at its
     default widths, then fuse, angle and metrics on 1 person × 2 records ×
-    300 frames of 1080p (cut from 4 persons × 900 frames: disk, host memory
+    160 frames of 1080p (cut from 4 persons × 900 frames: disk, host memory
     and the time limit): cold, launch counts reset just before and read
     just after (exactly 32 K1 launches a batch a record), every artifact
     checked."""
@@ -3433,7 +3463,10 @@ def prep_reference_phase(tmp: Path, device: str = "cuda"):
     pts = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
     samples = np.ascontiguousarray(
         flow[:, :, gy, gx].reshape(len(flow), 2, -1).transpose(0, 2, 1))
-    cfg = BT.ByteTrackConfig(max_tracks=8)
+    # greedy and exact (bytetrack.exact_match: the auction) association,
+    # each without and with the camera motion
+    cfgs = [BT.ByteTrackConfig(max_tracks=8),
+            BT.ByteTrackConfig(max_tracks=8, exact_match=True)]
     ids_equal = True
     for on in (torch.device("cpu"), dev):
         motion = BT.fit_global_motion(torch.as_tensor(pts, device=on),
@@ -3442,7 +3475,7 @@ def prep_reference_phase(tmp: Path, device: str = "cuda"):
                                      torch.as_tensor(scores, device=on),
                                      torch.as_tensor(valid, device=on), cfg,
                                      motion=m).cpu().numpy()
-               for m in (None, motion)]
+               for cfg in cfgs for m in (None, motion)]
         cx = torch.as_tensor(np.concatenate(
             [(boxes[..., :2] + boxes[..., 2:]) / 2,
              boxes[..., 2:] - boxes[..., :2]], -1), device=on)
@@ -3460,6 +3493,7 @@ def prep_reference_phase(tmp: Path, device: str = "cuda"):
                          and np.array_equal(picks[1], ref[1][1]))
     res["track_ids_and_picks_equal"] = ids_equal
     res["track_ids_emitted"] = int((ref[0][0] >= 0).sum())
+    res["track_ids_emitted_exact"] = int((ref[0][2] >= 0).sum())
     if not ids_equal:
         bad.append("the card's tracker or selection differs on the CPU's "
                    "detections")
@@ -3538,8 +3572,10 @@ def prep_reference_phase(tmp: Path, device: str = "cuda"):
         fail("prep_ref: " + "; ".join(bad))
 
 
-PREP_T, PREP_HW = 64, (1080, 1920)   # 2 videos × 64 frames (a 30 s clip
-#                                      is 900): the cut is frames per video
+PREP_T, PREP_HW = 40, (1080, 1920)   # 2 videos × 40 frames (a 30 s clip
+#                                      is 900; 64 until the training CLIs'
+#                                      phases needed the script's time): the
+#                                      cut is frames per video
 PREP_OVER = dict(bbox_model="detect")   # the yaml's tasks + the detect run
 
 
@@ -3571,7 +3607,7 @@ def prep_phase(tmp: Path, device: str = "cuda", T: int = PREP_T,
     backend and ``bbox_model: detect`` (YOLO11-s pose, seg and detect,
     Keypoint R-CNN R50-FPN, the DPT depth task at the stage's defaults 384
     / 12 / 6 through K1, RAFT 96 / 64 with 8 iterations, ByteTrack; seeded
-    weights) on 2 videos × 64 frames of 1080p in one person directory:
+    weights) on 2 videos × 40 frames of 1080p in one person directory:
     cold (K1 launches by shape: 12 a batch of 4 frames), every record
     checked; each task warm on a quarter of one video's frames, ms a frame;
     the stage warm on the same frames under torch.profiler (device activity:
@@ -4683,10 +4719,13 @@ def image_edit_phase(tmp: Path):
 # --------------------------------------------------------------------------
 # phase 8: one training step of the tiny detector, card against CPU
 # --------------------------------------------------------------------------
-def write_coco(root: Path, n: int, hw, seed: int) -> Path:
+def write_coco(root: Path, n: int, hw, seed: int,
+               keypoints: bool = False) -> Path:
     """A COCO instances file of ``n`` images of ``hw`` pixels, each with 1–3
     objects (a bright random pentagon on noise, its polygon as the
-    segmentation), written with OpenCV; returns the json path."""
+    segmentation), written with OpenCV; returns the json path. With
+    ``keypoints`` each object also has 17 visible keypoints inside its box,
+    drawn as coloured dots (a person-keypoints file)."""
     import cv2
     import numpy as np
 
@@ -4705,11 +4744,21 @@ def write_coco(root: Path, n: int, hw, seed: int) -> Path:
             cv2.fillPoly(img, [poly.astype(np.int32)],
                          tuple(int(x) for x in rng.integers(120, 255, 3)))
             (x0, y0), (x1, y1) = poly.min(0), poly.max(0)
-            anns.append({"id": len(anns), "image_id": i, "category_id": 1,
-                         "bbox": [float(x0), float(y0), float(x1 - x0),
-                                  float(y1 - y0)], "iscrowd": 0,
-                         "area": float((x1 - x0) * (y1 - y0)),
-                         "segmentation": [poly.ravel().tolist()]})
+            ann = {"id": len(anns), "image_id": i, "category_id": 1,
+                   "bbox": [float(x0), float(y0), float(x1 - x0),
+                            float(y1 - y0)], "iscrowd": 0,
+                   "area": float((x1 - x0) * (y1 - y0)),
+                   "segmentation": [poly.ravel().tolist()]}
+            if keypoints:
+                kx = rng.uniform(x0, x1, 17)
+                ky = rng.uniform(y0, y1, 17)
+                for j in range(17):
+                    cv2.circle(img, (int(kx[j]), int(ky[j])), 3,
+                               (255 * (j % 3 == 0), 255 * (j % 3 == 1),
+                                255 * (j % 3 == 2)), -1)
+                ann["keypoints"] = np.stack(
+                    [kx, ky, np.full(17, 2.0)], -1).ravel().tolist()
+            anns.append(ann)
         cv2.imwrite(str(root / "img" / f"{i}.png"), img)
         images.append({"id": i, "file_name": f"img/{i}.png", "width": W,
                        "height": H})
@@ -4726,7 +4775,14 @@ def train_reference_phase(tmp: Path, sam3: bool = False):
     K2 and K5, its global block K1, K3 and K4. ``sam3`` (phase
     ``train_sam3_ref``): the detector in the sam3 configuration (the
     interleaved rope in all five kernels) and the ``sam3`` optimizer scheme
-    with no warmup, so that the step moves the weights."""
+    with no warmup, so that the step moves the weights.
+    ``train_sam3_ref`` also matches exactly (``loss.exact_match``: the
+    auction in the detection loss) and samples the mask loss on
+    ``REF_MASK_POINTS`` PointRend points (``loss.mask_points``), drawn on
+    the CPU for both runs: every assignment of the loss, auction and
+    greedy, must be the same on the card as on the CPU. The CPU's
+    reversed-batch run gets the same points per image (the draws flipped
+    along the batch)."""
     import numpy as np
     import torch
 
@@ -4734,6 +4790,7 @@ def train_reference_phase(tmp: Path, sam3: bool = False):
     from skix_torch.data import CocoDataset, CocoLoader
     from skix_torch.ops import attention as A
     from skix_torch.pipelines import train_detector as T
+    from skix_torch.tracking import matcher as TM
 
     torch.backends.cudnn.allow_tf32 = False
     phase = "train_sam3_ref" if sam3 else "train_ref"
@@ -4747,8 +4804,26 @@ def train_reference_phase(tmp: Path, sam3: bool = False):
     if sam3:
         body.update(model={"rope_style": "sam3", "pretrain_img_size": 56},
                     optim={"scheme": "sam3", "warmup_steps": 0,
-                           "layer_decay": 0.9})
+                           "layer_decay": 0.9},
+                    loss={"cls": "iabce", "exact_match": True,
+                          "mask_points": REF_MASK_POINTS})
     cfg = config_from_mapping(body)
+    # every assignment the loss makes, by run
+    assigns = {"cpu": [], "cuda": [], "rev": []}
+    run = ["rev"]
+    draw = TM.uniform_points
+
+    def recorded(fn):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            assigns[run[0]].append(out.cpu())
+            return out
+        return wrapped
+
+    orig_assign = (TM.auction_assign, TM.greedy_assign)
+    TM.auction_assign, TM.greedy_assign = map(recorded, orig_assign)
+    # the reversed batch's images take the points of their forward twins
+    TM.uniform_points = lambda g, shape, d: draw(g, shape, d).flip(0)
     batch = next(iter(CocoLoader(CocoDataset(jp, image_root=root),
                                  batch_size=4, image_size=112, max_objects=4,
                                  seed=0)))
@@ -4765,7 +4840,10 @@ def train_reference_phase(tmp: Path, sam3: bool = False):
     g_rev = {n: (p.grad.clone() if p.grad is not None
                  else torch.zeros(p.shape)) for n, p in cpu.named_parameters()}
     cpu.zero_grad(set_to_none=True)
+    TM.uniform_points = draw
+    TM.AUCTION_ROUNDS.update(phases=0, rounds=0, max_per_phase=0)
     for name, model in (("cpu", cpu), ("cuda", gpu)):
+        run[0] = name
         dev = next(model.parameters()).device
         opt = T.build_optimizer(cfg, model, 10)
         reset_counts()
@@ -4780,8 +4858,14 @@ def train_reference_phase(tmp: Path, sam3: bool = False):
         res[name] = (loss.item(), grads, launches,
                      {n: p.detach().cpu() for n, p in model.named_parameters()},
                      norm)
+    TM.auction_assign, TM.greedy_assign = orig_assign
     (l_c, g_c, _, p_c, norm), (l_g, g_g, launches, p_g, _) = (res["cpu"],
                                                               res["cuda"])
+    assign_equal = (len(assigns["cpu"]) == len(assigns["cuda"]) > 0
+                    and all(torch.equal(a, b) for a, b in
+                            zip(assigns["cpu"], assigns["cuda"])))
+    rev_equal = all(torch.equal(a, b.flip(-2))      # (..., B, Q)
+                    for a, b in zip(assigns["cpu"], assigns["rev"]))
     # limits: f32 on both sides, sums in other orders (cuBLAS, the kernels,
     # MKL); each gradient leaf within 1e-4·max|g| + 1e-6 (g_err, the worst
     # leaf's error over its limit, ≤ 1); after Adam's first step (±lr where
@@ -4830,7 +4914,15 @@ def train_reference_phase(tmp: Path, sam3: bool = False):
                                   .item(), g_c[n].abs().max().item()]
                                  for n in worst]).replace(" ", ""),
         launches=json.dumps(launches[0]).replace(" ", ""),
-        launches_by_style=json.dumps(launches[1]).replace(" ", ""))
+        launches_by_style=json.dumps(launches[1]).replace(" ", ""),
+        loss_cfg=json.dumps(body["loss"]).replace(" ", ""),
+        assignments_equal=assign_equal,
+        assignments_compared=len(assigns["cuda"]),
+        assigned_pairs=sum(int((a >= 0).sum()) for a in assigns["cuda"]),
+        reversed_batch_assignments_equal=rev_equal,
+        auction_rounds_per_phase_max=TM.AUCTION_ROUNDS["max_per_phase"])
+    if not assign_equal:
+        fail(f"{phase}: the card's assignments differ from the CPU's")
     if skipped_elems > 0.01 * total:
         fail(f"{phase}: {skipped_elems} of {total} gradient elements lie in "
              f"rounding-noise leaves: the check would cover too little")
@@ -4856,8 +4948,11 @@ def _train_argv(tmp: Path):
 def train_phase(tmp: Path, phase: str = "train", init_checkpoint=None):
     """``train`` (configs/train_detector.yaml as it is) or, with
     ``init_checkpoint``, ``train_sam3``: the same run with ``model:
-    SAM3_DETECTOR``, ``optim.scheme: sam3`` and the converted detector as
-    its initial weights, launches also checked by rope style."""
+    SAM3_DETECTOR``, ``optim.scheme: sam3``, the converted detector as
+    its initial weights and the reference recipe's ``loss:
+    TRAIN_SAM3_LOSS`` (exact matching, PointRend points), launches also
+    checked by rope style; every assignment call timed (synchronized on
+    the card) and the auction's rounds a phase counted."""
     import numpy as np
     import torch
 
@@ -4865,6 +4960,7 @@ def train_phase(tmp: Path, phase: str = "train", init_checkpoint=None):
     from skix_torch.convert import flax_leaf
     from skix_torch.ops import attention as A
     from skix_torch.pipelines import train_detector as T
+    from skix_torch.tracking import matcher as TM
 
     root, argv = _train_argv(tmp)
     t0 = time.perf_counter()
@@ -4878,6 +4974,23 @@ def train_phase(tmp: Path, phase: str = "train", init_checkpoint=None):
         cfg["model"] = dict(SAM3_DETECTOR)
         cfg["optim"]["scheme"] = "sam3"
         cfg["init_checkpoint"] = str(init_checkpoint)
+        cfg["loss"] = {**(cfg.get("loss") or {}), **TRAIN_SAM3_LOSS}
+    match_s = []            # (step index, seconds) of every assignment call
+    orig_assign = (TM.auction_assign, TM.greedy_assign)
+
+    def timed(fn):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            match_s.append(time.perf_counter() - t)
+            return out
+        return wrapped
+
+    if init_checkpoint is not None:
+        TM.auction_assign, TM.greedy_assign = map(timed, orig_assign)
+    TM.AUCTION_ROUNDS.update(phases=0, rounds=0, max_per_phase=0)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4886,6 +4999,8 @@ def train_phase(tmp: Path, phase: str = "train", init_checkpoint=None):
     run = T.main(cfg)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    TM.auction_assign, TM.greedy_assign = orig_assign
+    rounds = dict(TM.AUCTION_ROUNDS)
     launches, by_style = dict(A.LAUNCHES), dict(A.LAUNCHES_BY_STYLE)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -4916,6 +5031,18 @@ def train_phase(tmp: Path, phase: str = "train", init_checkpoint=None):
     warm = run.steps[1:]
     split = {k: sum(s[k] for s in warm) / len(warm) * 1e3
              for k in ("data_s", "forward_s", "backward_s", "optimizer_s")}
+    # the assignment calls of the steps (the eval forwards make none): as
+    # many a step; the warm steps' share
+    per_step = len(match_s) // TRAIN_STEPS
+    warm_match_ms = sum(match_s[per_step:]) / (TRAIN_STEPS - 1) * 1e3
+    match = {} if not match_s else dict(matching_calls_per_step=per_step,
+                 warm_matching_ms=warm_match_ms,
+                 warm_matching_share=warm_match_ms / sum(split.values()),
+                 auction_phases=rounds["phases"],
+                 auction_rounds_per_phase_mean=(rounds["rounds"]
+                                                / max(rounds["phases"], 1)),
+                 auction_rounds_per_phase_max=rounds["max_per_phase"],
+                 loss_cfg=json.dumps(cfg.get("loss")).replace(" ", ""))
     say(phase, wall_s=round(wall_s, 3), fixture_setup_s=round(setup_s, 3),
         steps=TRAIN_STEPS, final_loss=res.get("final_loss"),
         ap_before=res.get("ap_before"), ap_after=res.get("ap_after"),
@@ -4926,7 +5053,7 @@ def train_phase(tmp: Path, phase: str = "train", init_checkpoint=None):
         checkpoint_leaves=len(got),
         launches=json.dumps(launches).replace(" ", ""),
         expected_launches=json.dumps(expected).replace(" ", ""),
-        launches_by_style=json.dumps(by_style).replace(" ", ""))
+        launches_by_style=json.dumps(by_style).replace(" ", ""), **match)
     for k in ("final_loss", "ap_before", "ap_after"):
         if not (isinstance(res.get(k), float) and math.isfinite(res[k])):
             fail(f"{phase}: final_eval.json {k} = {res.get(k)}")
@@ -5011,13 +5138,336 @@ def train_profile_phase(tmp: Path, run):
          for e in top]).replace(" ", ""))
 
 
+# --------------------------------------------------------------------------
+# phase 9c: the training CLIs train_lifter and train_pose
+# --------------------------------------------------------------------------
+def write_lifter_clips(root: Path, n: int, T: int, seed: int) -> None:
+    """``n`` clips ``<clip>.npz`` of T frames: a random walk of 17 joints in
+    metres (``pose_3d``) and its perspective projection 5 m out
+    (``pose_2d``, normalized), as train_lifter's data files hold them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for c in range(n):
+        base = rng.normal(0, 0.3, (1, 17, 3))
+        walk = np.cumsum(rng.normal(0, 0.01, (T, 1, 3)), 0)
+        p3 = (base + walk + rng.normal(0, 0.02, (T, 17, 3))).astype(
+            np.float32)
+        p2 = (p3[..., :2] / (p3[..., 2:] + 5.0)).astype(np.float32)
+        np.savez(root / f"clip_{c:03d}.npz", pose_2d=p2, pose_3d=p3)
+
+
+def lifter_cfg(data: Path, ckpt: Path, device: str, epochs: int,
+               resume: bool, **over) -> dict:
+    """configs/train_lifter.yaml with the paths, the device, ``epochs``,
+    ``resume`` and ``over``."""
+    from skix_torch.config import load_config
+
+    cfg = load_config("train_lifter", config_dir=ROOT / "configs").to_dict()
+    cfg.update(device=device, epochs=epochs, resume=resume, **over)
+    cfg["paths"] = {"data_root": str(data), "checkpoint_dir": str(ckpt)}
+    return cfg
+
+
+def _npz(path: Path) -> dict:
+    import numpy as np
+
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _ckpt_errs(got: dict, want: dict):
+    """Per group of leaves (params, batch_stats, opt_state, …) the largest
+    |got − want| over the leaf's largest |want|, and the largest absolute
+    parameter difference."""
+    import numpy as np
+
+    errs, p_abs = {}, 0.0
+    for k, w in want.items():
+        d = float(np.abs(got[k].astype(np.float64) - w).max(initial=0.0))
+        group = k.split("/")[0] if "/" in k else k
+        if group == "opt_state":
+            group = "/".join(k.split("/")[:2])
+        errs[group] = max(errs.get(group, 0.0),
+                          d / max(float(np.abs(w).max(initial=0.0)), 1e-6))
+        if group == "params":
+            p_abs = max(p_abs, d)
+    return errs, p_abs
+
+
+def lifter_train_reference_phase(tmp: Path):
+    """train_lifter at LIFTER_REF on the card and on the CPU from the same
+    clips: 2 epochs, then a resume to a third. The lifters are built with
+    dropout 0 (``TemporalLifter`` patched on both runs): the card's and the
+    CPU's dropout generators draw different streams. Every epoch's
+    checkpoint read back: parameters within Adam's 2·lr a step of each
+    other (a rounding-level gradient's sign) and 99 % of their elements
+    within 1e-4 of their leaf's scale; BatchNorm statistics and Adam's
+    moments within 1e-3 of their scale; the meta files equal; each epoch's
+    mean MPJPE within 1e-4 relative."""
+    import functools
+
+    import numpy as np
+
+    from skix_torch.models import videopose3d as VP
+    from skix_torch.pipelines import train_lifter as TL
+
+    data = tmp / "lifter_ref_data"
+    write_lifter_clips(data, 2, 40, seed=70)
+    orig = VP.TemporalLifter
+    VP.TemporalLifter = functools.partial(orig, dropout=0.0)
+    runs = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            ck = tmp / f"lifter_ref_{dev}"
+            a = TL.main(lifter_cfg(data, ck, dev, 2, False, **LIFTER_REF))
+            b = TL.main(lifter_cfg(data, ck, dev, 3, True, **LIFTER_REF))
+            runs[dev] = (ck, a.epochs + b.epochs)
+    finally:
+        VP.TemporalLifter = orig
+    (ck_c, ep_c), (ck_g, ep_g) = runs["cpu"], runs["cuda"]
+    steps = sum(e["steps"] for e in ep_c)
+    lr = float(lifter_cfg(data, ck_c, "cpu", 1, False)["lr"])
+    worst, p_abs, near = {}, 0.0, []
+    for e in range(3):
+        want = _npz(ck_c / f"epoch_{e:04d}.npz")
+        got = _npz(ck_g / f"epoch_{e:04d}.npz")
+        if set(got) != set(want):
+            fail(f"lifter_train_ref: epoch {e}'s checkpoint keys differ")
+        errs, d = _ckpt_errs(got, want)
+        p_abs = max(p_abs, d)
+        for g, v in errs.items():
+            worst[g] = max(worst.get(g, 0.0), v)
+        near += [np.abs(got[k] - want[k]) <= 1e-4 * max(
+            np.abs(want[k]).max(), 1e-6) for k in want
+            if k.startswith("params/")]
+        if ((ck_c / f"epoch_{e:04d}_meta.json").read_text()
+                != (ck_g / f"epoch_{e:04d}_meta.json").read_text()):
+            fail(f"lifter_train_ref: epoch {e}'s meta files differ")
+    near_share = float(np.concatenate([n.ravel() for n in near]).mean())
+    loss_rel = max(abs(a["mpjpe"] - b["mpjpe"]) / abs(b["mpjpe"])
+                   for a, b in zip(ep_g, ep_c))
+    say("lifter_train_ref", epochs=len(ep_c), steps=steps,
+        mpjpe_cpu=json.dumps([e["mpjpe"] for e in ep_c]).replace(" ", ""),
+        mpjpe_rel=loss_rel, param_abs_max=p_abs,
+        param_abs_limit=2 * lr * steps, params_within_1e4th_share=near_share,
+        errs=json.dumps(worst).replace(" ", ""))
+    stats_ok = all(v <= 1e-3 for g, v in worst.items() if g != "params")
+    if not (loss_rel <= 1e-4 and p_abs <= 2 * lr * steps
+            and near_share >= 0.99 and stats_ok):
+        fail("lifter_train_ref: card and CPU disagree")
+
+
+def lifter_train_phase(tmp: Path):
+    """train_lifter at configs/train_lifter.yaml as it is (VideoPose3D
+    channels 1024, widths 3 × 5, strided, batch 128, dropout 0.25, Adam
+    with the per-epoch decay) on LIFTER_CLIPS synthetic clips of LIFTER_T
+    frames: 2 epochs, then a resume to a third; launch counts (none of the
+    kernels), s an epoch and ms a step (the warm epochs), peak memory, the
+    checkpoints read back (the leaves of the model's tree, Adam's count
+    and the step), the resumed run's step count; then the host's share:
+    an epoch of the generator's batches alone (ms a batch)."""
+    import numpy as np
+    import torch
+
+    from skix_torch.convert import flatten_tree, state_dict_to_flax
+    from skix_torch.models.generators import ChunkedGenerator
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines import train_lifter as TL
+
+    data = tmp / "lifter_data"
+    write_lifter_clips(data, LIFTER_CLIPS, LIFTER_T, seed=71)
+    ck = tmp / "lifter_ckpt"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    first = TL.main(lifter_cfg(data, ck, "cuda", 2, False))
+    resumed = TL.main(lifter_cfg(data, ck, "cuda", 3, True))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(A.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    epochs = first.epochs + resumed.epochs
+    steps = epochs[0]["steps"]
+    warm = epochs[1:]
+    epoch_s = sum(e["seconds"] for e in warm) / len(warm)
+    want = {f"params/{k}" for k in flatten_tree(state_dict_to_flax(
+        first.state.model.state_dict())["params"])}
+    last = _npz(ck / "epoch_0002.npz")
+    got = {k for k in last if k.startswith("params/")}
+    p2, p3 = TL.load_training_data(data)
+    gen = ChunkedGenerator(p2, p3, first.state.model.rf, batch_size=128)
+    t1 = time.perf_counter()
+    n_batches = sum(1 for _ in gen.epoch())
+    host_batch_ms = (time.perf_counter() - t1) / n_batches * 1e3
+    say("lifter_train", wall_s=round(wall_s, 3), clips=LIFTER_CLIPS,
+        frames=LIFTER_CLIPS * LIFTER_T, steps_per_epoch=steps,
+        epochs=len(epochs), warm_epoch_s=epoch_s,
+        warm_step_ms=epoch_s / steps * 1e3, host_batch_ms=host_batch_ms,
+        first_epoch_s=epochs[0]["seconds"],
+        mpjpe=json.dumps([e["mpjpe"] for e in epochs]).replace(" ", ""),
+        peak_mem_gib=round(peak_gib, 3), checkpoint_leaves=len(last),
+        adam_count=int(last["opt_state/count"]), step=int(last["step"]),
+        launches=json.dumps(launches).replace(" ", ""))
+    if got != want:
+        fail(f"lifter_train: the checkpoint's parameters differ from the "
+             f"model's tree ({len(got)} vs {len(want)} leaves)")
+    if not (int(last["step"]) == int(last["opt_state/count"]) == 3 * steps
+            and resumed.state.step == 3 * steps):
+        fail(f"lifter_train: the resumed run's step {int(last['step'])}, "
+             f"expected {3 * steps}")
+    if not all(math.isfinite(e["mpjpe"]) for e in epochs) or not all(
+            np.isfinite(v).all() for v in last.values()):
+        fail("lifter_train: a loss or checkpoint value is not finite")
+    if any(launches.values()):
+        fail(f"lifter_train: kernels launched {launches}; none expected")
+    return launches, {}
+
+
+def pose_cfg(coco: Path, ckpt: Path, device: str, **over) -> dict:
+    """configs/train_pose.yaml with the fixture, the checkpoint directory,
+    the device and ``over``."""
+    from skix_torch.config import load_config
+
+    cfg = load_config("train_pose", config_dir=ROOT / "configs").to_dict()
+    cfg.update(coco_json=str(coco / "coco.json"), image_root=str(coco),
+               device=device, **over)
+    cfg["paths"] = {"checkpoint_dir": str(ckpt)}
+    return cfg
+
+
+def pose_train_reference_phase(tmp: Path):
+    """train_pose at POSE_REF (YOLOv8-n, one step) on the card and on the
+    CPU from one seeded skix npz (``init_checkpoint``) on a keypoints
+    fixture: the step's loss within 1e-4 relative; the written checkpoint's
+    parameters within Adam's 2·lr a step and 99 % of them within lr/10,
+    its BatchNorm statistics (moved by the step's forward, from the same
+    weights) within 1e-4 of their scale; final_eval.txt within 1e-3
+    relative. (After a second step the statistics come from weights that
+    Adam's sign has parted by up to 2·lr: 1.1e-3 of their scale apart.)"""
+    import numpy as np
+    import torch
+
+    from skix_torch.models.layers import init_like_flax
+    from skix_torch.models.yolo_pose import YoloPose
+    from skix_torch.pipelines import train_pose as TP
+
+    torch.backends.cudnn.allow_tf32 = False
+    coco = tmp / "pose_ref_coco"
+    write_coco(coco, 4, (96, 96), seed=72, keypoints=True)
+    init = tmp / "pose_ref_init.npz"
+    model = YoloPose(scale=POSE_REF["scale"], version=8)
+    init_like_flax(model, torch.Generator().manual_seed(5))
+    save_skix_npz(init, model)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        ck = tmp / f"pose_ref_{dev}"
+        runs[dev] = (ck, TP.main(pose_cfg(coco, ck, dev, **POSE_REF,
+                                          init_checkpoint=str(init))))
+    (ck_c, r_c), (ck_g, r_g) = runs["cpu"], runs["cuda"]
+    name = f"yolo_pose_{POSE_REF['steps']:06d}.npz"
+    want, got = _npz(ck_c / name), _npz(ck_g / name)
+    if set(got) != set(want):
+        fail("pose_train_ref: the checkpoints' keys differ")
+    errs, p_abs = _ckpt_errs(got, want)
+    diff = np.concatenate([np.abs(got[k] - want[k]).ravel() for k in want
+                           if k.startswith("params/")])
+    lr = float(pose_cfg(coco, ck_c, "cpu")["lr"])
+    steps = POSE_REF["steps"]
+    loss_rel = abs(r_g.steps[0]["loss"] - r_c.steps[0]["loss"]) / abs(
+        r_c.steps[0]["loss"])
+    err_rel = abs(r_g.final_error - r_c.final_error) / abs(r_c.final_error)
+    say("pose_train_ref", steps=steps, loss_cpu=r_c.steps[0]["loss"],
+        loss_card=r_g.steps[0]["loss"], loss_rel=loss_rel,
+        param_abs_max=p_abs, param_abs_limit=2 * steps * lr,
+        params_within_lr_10_share=float((diff <= lr / 10).mean()),
+        stats_err=errs.get("batch_stats"), final_error_cpu=r_c.final_error,
+        final_error_rel=err_rel)
+    if not (loss_rel <= 1e-4 and p_abs <= 2 * steps * lr * 1.01
+            and (diff <= lr / 10).mean() >= 0.99
+            and errs.get("batch_stats", 0.0) <= 1e-4 and err_rel <= 1e-3):
+        fail("pose_train_ref: card and CPU disagree")
+
+
+def pose_train_phase(tmp: Path):
+    """train_pose at configs/train_pose.yaml as it is (YOLOv8-s, 640 px,
+    batch 8, clip 10 then AdamW with the cosine rate) for POSE_STEPS steps
+    on a POSE_IMAGES-image keypoints fixture written with OpenCV, seeded
+    weights; then a resume: 2 more steps from the written npz as
+    ``init_checkpoint``. Launch counts (none of the kernels), ms a step
+    (warm), peak memory, the checkpoint read back (its leaves the model's
+    tree; loaded into a fresh model it gives the trained model's outputs),
+    final_eval.txt finite."""
+    import torch
+
+    from skix_torch.convert import (flatten_tree, flax_to_state_dict,
+                                    load_into, state_dict_to_flax)
+    from skix_torch.models.yolo_pose import YoloPose
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines import train_pose as TP
+
+    coco = tmp / "pose_coco"
+    write_coco(coco, POSE_IMAGES, TRAIN_HW, seed=73, keypoints=True)
+    ck = tmp / "pose_ckpt"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    run = TP.main(pose_cfg(coco, ck, "cuda", steps=POSE_STEPS, log_every=1))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(A.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    npz = ck / f"yolo_pose_{POSE_STEPS:06d}.npz"
+    saved = _npz(npz)
+    want = set(flatten_tree(state_dict_to_flax(run.model.state_dict())))
+    fresh = YoloPose(scale="s", version=8)
+    load_into(fresh, flax_to_state_dict(npz))
+    fresh = fresh.cuda().eval()
+    run.model.eval()
+    x = torch.rand(2, 640, 640, 3, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0))
+    with torch.no_grad():
+        same = torch.equal(fresh(x).cls_logits, run.model(x).cls_logits)
+    resumed = TP.main(pose_cfg(coco, tmp / "pose_ckpt_resumed", "cuda",
+                               steps=2, init_checkpoint=str(npz),
+                               final_eval=False))
+    warm = [s["step_s"] for s in run.steps[1:]]
+    say("pose_train", wall_s=round(wall_s, 3), steps=POSE_STEPS,
+        images=POSE_IMAGES, warm_step_ms=sum(warm) / len(warm) * 1e3,
+        first_step_ms=run.steps[0]["step_s"] * 1e3,
+        losses=json.dumps([round(s["loss"], 5) for s in run.steps]).replace(
+            " ", ""), final_error_px=run.final_error,
+        peak_mem_gib=round(peak_gib, 3), checkpoint_leaves=len(saved),
+        checkpoint_mb=round(npz.stat().st_size / 2 ** 20, 2),
+        reloaded_outputs_equal=same,
+        resumed_losses=json.dumps([round(s["loss"], 5)
+                                   for s in resumed.steps]).replace(" ", ""),
+        launches=json.dumps(launches).replace(" ", ""))
+    if set(saved) != want:
+        fail("pose_train: the checkpoint's leaves differ from the model's "
+             "tree")
+    if not (same and math.isfinite(run.final_error)
+            and all(math.isfinite(s["loss"]) for s in run.steps
+                    + resumed.steps)):
+        fail("pose_train: a reloaded output, loss or the final error is off")
+    if any(launches.values()):
+        fail(f"pose_train: kernels launched {launches}; none expected")
+    return launches, {}
+
+
 GROUPS = ("kernels", "vggt", "front", "chain", "side", "vggt_cli", "prep",
-          "views", "image_edit", "train")
+          "views", "image_edit", "train", "train_cli")
 
 
 def main() -> int:
     # ``--only a,b``: a partial run of these phase groups (GROUPS; "train"
-    # needs "front", whose sam3 checkpoints it starts from) after the build,
+    # needs "front", whose sam3 checkpoints it starts from; "train_cli"
+    # needs none) after the build,
     # with no kernels line and no verdict. Without arguments every group
     # runs, as the verdict needs.
     only = None
@@ -5174,6 +5624,16 @@ def main() -> int:
             train_run, *paths["train_sam3"] = train_phase(tmp, "train_sam3",
                                                           det_ckpt)
             del train_run
+            gc.collect()
+            torch.cuda.empty_cache()
+        if want("train_cli"):
+            # 9c. the training CLIs train_lifter and train_pose: small, card
+            # against CPU; at the configs' widths, with checkpoints read
+            # back and a resume
+            lifter_train_reference_phase(tmp)
+            paths["lifter_train"] = lifter_train_phase(tmp)
+            pose_train_reference_phase(tmp)
+            paths["pose_train"] = pose_train_phase(tmp)
 
     if only is not None:
         say("only", groups=",".join(sorted(only)),

@@ -279,6 +279,26 @@ class GroupNorm(nn.Module):
         return y.reshape(x.shape) * self.weight + self.bias
 
 
+def batch_norm_train(x, weight, bias, running_mean, running_var,
+                     momentum: float, eps: float, dims):
+    """flax ``BatchNorm`` in training: normalize ``x`` by its statistics over
+    ``dims`` (the variance as flax's fast form, max(0, E[x²] − E[x]²),
+    biased), ``(x − mean) · (rsqrt(var + eps) · weight) + bias`` in flax's
+    order, and move the running statistics in place to ``momentum · old +
+    (1 − momentum) · batch``. ``weight``, ``bias`` and the statistics are
+    shaped to broadcast against ``x``'s reduced shape."""
+    mean = x.mean(dims, keepdim=True)
+    var = torch.clamp((x * x).mean(dims, keepdim=True) - mean * mean, min=0)
+    with torch.no_grad():
+        running_mean.copy_(momentum * running_mean + (1 - momentum)
+                           * mean.detach().reshape(running_mean.shape))
+        running_var.copy_(momentum * running_var + (1 - momentum)
+                          * var.detach().reshape(running_var.shape))
+    shape = mean.shape
+    mul = torch.rsqrt(var + eps) * weight.reshape(shape)
+    return (x - mean) * mul + bias.reshape(shape)
+
+
 def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
     """flax/XLA ``SAME`` padding of one axis: output ceil(n/s), the total
     pad split with the smaller half first (a stride-2 3×3 conv on an even

@@ -1,7 +1,8 @@
 """Pattern-scoped AdamW parameter groups, layer decay and LR schedules.
 
-Port of the parts of ``skix/models/optim.py`` that ``train_detector``'s
-optimizer schemes use. skix builds one ``optax.multi_transform`` whose
+Port of the parts of ``skix/models/optim.py`` that the training CLIs use
+(``train_detector``'s optimizer schemes, ``warmup_cosine_schedule``), with
+the lifter's Adam (:class:`ScheduledAdam`, skix's ``models/train.py``). skix builds one ``optax.multi_transform`` whose
 labels come from ``fnmatch`` patterns over the ``a/b/c`` paths of the flax
 params; here the same rules resolve to ``torch.optim.AdamW`` parameter
 groups, each with its learning-rate schedule and weight decay, and
@@ -80,6 +81,43 @@ def inverse_sqrt_schedule(base_lr: float, warmup_steps: int,
             lr = lr * np.clip((total - step) / _F32(cooldown_steps),
                               _F32(0), _F32(1))
         return float(_F32(lr))
+
+    return schedule
+
+
+def warmup_cosine_schedule(base_lr: float, warmup_steps: int,
+                           total_steps: int, end_lr: float = 0.0
+                           ) -> Callable[[int], float]:
+    """skix's ``warmup_cosine_schedule``: ``optax.warmup_cosine_decay_
+    schedule(0, base_lr, max(warmup_steps, 1), total_steps, end_lr)``, a
+    linear ramp from 0, then a cosine from ``base_lr`` to ``end_lr``."""
+    warmup = max(int(warmup_steps), 1)
+    peak = _F32(base_lr)
+    alpha = 0.0 if base_lr == 0 else float(end_lr) / float(base_lr)
+    cosine = cosine_decay_schedule(base_lr, total_steps - warmup, alpha)
+
+    def schedule(count: int) -> float:
+        if count < warmup:
+            frac = _F32(1) - _F32(min(max(count, 0), warmup)) / _F32(warmup)
+            return float(-peak * frac + peak)
+        if total_steps - warmup <= 0:
+            return float(peak)
+        return cosine(count - warmup)
+
+    return schedule
+
+
+def exponential_decay_schedule(init_value: float, transition_steps: int,
+                               decay_rate: float) -> Callable[[int], float]:
+    """``optax.exponential_decay(init_value, transition_steps, decay_rate,
+    staircase=True)``: ``init_value · decay_rate^⌊count / transition_steps⌋``
+    in float32."""
+    def schedule(count: int) -> float:
+        if count <= 0:
+            return float(_F32(init_value))
+        p = np.floor(_F32(count) / _F32(transition_steps))
+        return float(_F32(init_value) * np.power(_F32(decay_rate), p,
+                                                  dtype=_F32))
 
     return schedule
 
@@ -246,3 +284,48 @@ def construct_optimizer(named_params,
     opt = ClippedAdamW([dict(g, params=[by_path[p] for p in g["paths"]])
                         for g in groups], grad_clip_norm)
     return opt, groups
+
+
+class ScheduledAdam:
+    """``optax.adam(schedule, eps=eps)`` on torch parameters (the lifter's
+    optimizer): the learning rate of each update is the schedule at the
+    update count before it. ``state()``/``load_state()`` give and take the
+    first and second moments by parameter and the count, the parts of
+    optax's ``ScaleByAdamState``."""
+
+    def __init__(self, params, schedule: ScheduleLike, eps: float = 1e-8):
+        self.params = list(params)
+        self.schedule = schedule
+        self.count = 0
+        self.opt = torch.optim.Adam(self.params, lr=_value(schedule, 0),
+                                    eps=eps)
+
+    def zero_grad(self):
+        self.opt.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        for group in self.opt.param_groups:
+            group["lr"] = _value(self.schedule, self.count)
+        self.opt.step()
+        self.count += 1
+
+    def state(self) -> tuple[list, list]:
+        """``(mu, nu)``: per parameter, in order, its moments (zeros before
+        the first update)."""
+        mu, nu = [], []
+        for p in self.params:
+            st = self.opt.state.get(p, {})
+            mu.append(st.get("exp_avg", torch.zeros_like(p)).detach())
+            nu.append(st.get("exp_avg_sq", torch.zeros_like(p)).detach())
+        return mu, nu
+
+    def load_state(self, mu, nu, count: int) -> None:
+        self.count = int(count)
+        for p, m, v in zip(self.params, mu, nu):
+            self.opt.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": torch.as_tensor(m, dtype=p.dtype).to(p.device),
+                "exp_avg_sq": torch.as_tensor(v, dtype=p.dtype).to(p.device)}

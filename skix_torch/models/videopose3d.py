@@ -8,7 +8,11 @@ carry skix's flax names (``expand_conv``, ``expand_bn``, ``conv_{i}_a``,
 ``bn_{i}_a``, ``conv_{i}_b``, ``bn_{i}_b``, ``shrink``), so
 ``skix_torch.convert.flax_to_state_dict`` of skix's variables loads as it
 is. BatchNorm is torch's with eps 1e-5 (in eval mode the same affine map
-as flax's).
+as flax's). In training mode (``model.train()``) every BatchNorm is
+flax's instead (``layers.batch_norm_train``: the biased batch variance,
+running statistics moved at skix's momentum 0.9, where torch's train mode
+would move them with the unbiased variance), and dropout draws its keep
+mask from the ``generator`` that the caller passes.
 
 Precision: float32 throughout. On the card the forward runs with cuDNN's
 TF32 turned off inside its own scope (PyTorch lets cuDNN convolutions use
@@ -26,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from skix_torch.geometry.skeletons import H36M_LEFT, H36M_RIGHT, flip_keypoints
+from skix_torch.models.layers import batch_norm_train
 from skix_torch.utils.device import full_float32_convs
 
 
@@ -54,7 +59,7 @@ class TemporalLifter(nn.Module):
         self.filter_widths = tuple(filter_widths)
         self.causal, self.strided = causal, strided
         fw = self.filter_widths
-        self.drop = nn.Dropout(dropout)
+        self.dropout = float(dropout)
         self.expand_conv = nn.Conv1d(num_joints_in * in_features, channels,
                                      fw[0], stride=fw[0] if strided else 1,
                                      bias=False)
@@ -75,10 +80,29 @@ class TemporalLifter(nn.Module):
     def rf(self) -> int:
         return receptive_field(self.filter_widths)
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _bn(self, name: str, h: torch.Tensor) -> torch.Tensor:
+        bn = getattr(self, name)
+        if not self.training:
+            return F.batch_norm(h, bn.running_mean, bn.running_var,
+                                bn.weight, bn.bias, False, 0.0, bn.eps)
+        return batch_norm_train(h, bn.weight, bn.bias, bn.running_mean,
+                                bn.running_var, 0.9, bn.eps, (0, 2))
+
+    def _drop(self, h: torch.Tensor, generator) -> torch.Tensor:
+        """flax's ``Dropout``: keep with probability 1 − rate, scaled by
+        1 / (1 − rate); the identity outside training or at rate 0."""
+        if not self.training or self.dropout == 0.0:
+            return h
+        keep = 1.0 - self.dropout
+        mask = torch.rand(h.shape, generator=generator,
+                          device=h.device) < keep
+        return torch.where(mask, h / keep, torch.zeros((), device=h.device))
+
+    def _forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         B, T = x.shape[0], x.shape[1]
         h = x.reshape(B, T, -1).transpose(1, 2)             # (B, F, T)
-        h = self.drop(F.relu(self.expand_bn(self.expand_conv(h))))
+        drop = lambda t: self._drop(t, generator)          # noqa: E731
+        h = drop(F.relu(self._bn("expand_bn", self.expand_conv(h))))
         fw = self.filter_widths
         dilation = fw[0]
         for i, w in enumerate(fw[1:]):
@@ -90,16 +114,18 @@ class TemporalLifter(nn.Module):
                 shift = (w // 2) * dilation if self.causal else 0
                 res = h[:, :, pad + shift: h.shape[2] - pad + shift]
             conv_a = getattr(self, f"conv_{i}_a")
-            h = self.drop(F.relu(getattr(self, f"bn_{i}_a")(conv_a(h))))
+            h = drop(F.relu(self._bn(f"bn_{i}_a", conv_a(h))))
             h = getattr(self, f"conv_{i}_b")(h)
-            h = res + self.drop(F.relu(getattr(self, f"bn_{i}_b")(h)))
+            h = res + drop(F.relu(self._bn(f"bn_{i}_b", h)))
             dilation *= w
         out = self.shrink(h).transpose(1, 2)                 # (B, T', J·3)
         return out.reshape(B, out.shape[1], self.num_joints_out, 3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """``generator``: the dropout draws' source in training mode (on
+        ``x``'s device; needed when the dropout rate is above 0)."""
         with full_float32_convs():
-            return self._forward(x)
+            return self._forward(x, generator)
 
 
 # --------------------------------------------------------------------------

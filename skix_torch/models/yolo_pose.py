@@ -6,7 +6,8 @@ branch) and 11 (C3k2 blocks with optional nested C3k bottlenecks, a C2PSA
 attention stage after SPPF, the depthwise-separable classification
 branch). ``scale`` picks the n/s/m/l/x widths and depths of ultralytics'
 tables. Every conv is ultralytics' ``Conv``: bias-free conv, BatchNorm
-(eps 1e-3, running statistics), SiLU.
+(eps 1e-3, running statistics; in training mode flax's batch statistics and
+momentum 0.97), SiLU.
 
 - :class:`YoloPose` → :class:`RawPredictions` (DFL box logits, class
   logits, keypoint offsets, anchors, strides); :func:`detect` decodes and
@@ -37,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from skix_torch.models.layers import Conv, ConvTranspose
+from skix_torch.models.layers import Conv, ConvTranspose, batch_norm_train
 from skix_torch.ops.nms import nms
 from skix_torch.perception.sfm_tracks import top_k
 from skix_torch.utils.device import constant, full_float32_convs
@@ -66,8 +67,11 @@ def _make_divisible(c: float, d: int = 8) -> int:
 
 
 class BatchNorm(nn.Module):
-    """flax ``BatchNorm`` in inference on channels-last input:
-    ``(x − mean) · (rsqrt(var + eps) · scale) + bias``, flax's order."""
+    """flax ``BatchNorm`` on channels-last input, skix's ``momentum=0.97``:
+    in inference ``(x − mean) · (rsqrt(var + eps) · scale) + bias``, flax's
+    order; in training mode (``module.train()``) the batch statistics, the
+    running ones moved to 0.97 · old + 0.03 · batch
+    (``layers.batch_norm_train``)."""
 
     def __init__(self, dim: int, eps: float = 1e-3):
         super().__init__()
@@ -78,6 +82,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(dim))
 
     def forward(self, x):
+        if self.training:
+            return batch_norm_train(x, self.weight, self.bias,
+                                    self.running_mean, self.running_var, 0.97,
+                                    self.eps, tuple(range(x.dim() - 1)))
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         return (x - self.running_mean) * mul + self.bias
 
@@ -475,6 +483,16 @@ class YoloPose(_YoloBase):
         return RawPredictions(box_dist=dist, cls_logits=cls,
                               kpt_raw=kpt.reshape(B, A, self.num_keypoints, 3),
                               anchors=anchors, strides=strides)
+
+    def train_forward(self, images):
+        """skix's ``apply(..., train=True, mutable=["batch_stats"])``: the
+        raw predictions from batch statistics (the model is left in
+        training mode) and the updated running statistics, ``{buffer name:
+        tensor}``."""
+        self.train()
+        raw = self(images)
+        return raw, {n: b for n, b in self.named_buffers()
+                     if n.endswith(("running_mean", "running_var"))}
 
 
 def dfl_expectation(box_dist):

@@ -20,8 +20,11 @@ warp per frame pair, least squares on the optical flow sampled on a stride-16
 grid (:func:`motion_grid`, :func:`fit_global_motion`), applied to every
 occupied slot's state before association (:func:`_apply_gmc`).
 
-``exact_match: true`` (skix's auction LAP) is not ported: it raises
-``NotImplementedError`` through ``matcher.refuse_unported``.
+``exact_match: true`` solves every association stage exactly, as
+ultralytics' ``lap.lapjv(1 − sim, extend_cost=True, cost_limit=1 − thresh)``
+does, with skix's auction (:func:`_exact_match`,
+``matcher.auction_assign``). The auction's host loop reads one flag a
+round, so this option waits on the device.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from skix_torch.ops.nms import box_iou
-from skix_torch.tracking.matcher import refuse_unported
+from skix_torch.tracking.matcher import auction_assign
 
 _NEG = -1e9
 _WP = 1.0 / 20      # Kalman position std weight (SORT/ByteTrack)
@@ -163,6 +166,30 @@ def _greedy_match(sim, row_ok, col_ok, thresh, rounds: int):
     return assign
 
 
+def _exact_match(sim, row_ok, col_ok, thresh, rounds: int = 0):
+    """Exact assignment with a cost limit, ``lap.lapjv(1 − sim,
+    extend_cost=True, cost_limit=1 − thresh)``'s semantics, solved by the
+    auction over ``[costᵀ; dummy]``: each track may instead take its own
+    dummy row at cost ``1 − thresh``, so the optimum never matches a pair
+    whose cost is above the limit. → row→col index (int32) or −1;
+    ``rounds`` is unused (the signature of :func:`_greedy_match`)."""
+    K, N = sim.shape
+    dev = sim.device
+    big = torch.full((), 2.0, device=dev)   # above any real cost or the gate
+    cost = torch.where(col_ok[None, :], 1.0 - sim, big)           # (K, N)
+    dummy = torch.where(torch.eye(K, dtype=torch.bool, device=dev),
+                        1.0 - thresh, big)
+    full = torch.cat([cost.T, dummy], 0)                           # (N+K, K)
+    col_of_row = auction_assign(full, row_ok)                      # (N+K,)
+    rows = torch.arange(N + K, device=dev)
+    real = (col_of_row >= 0) & (rows < N)
+    # invert row→track into track→det (each track holds at most one row)
+    assign = torch.full((K,), -1, dtype=torch.int64, device=dev)
+    assign = assign.scatter_reduce(0, col_of_row.clamp(min=0),
+                                   torch.where(real, rows, -1), "amax")
+    return assign.to(torch.int32)
+
+
 def _det_taken(assign, N):
     safe = torch.clamp(assign, min=0).long()
     taken = torch.zeros(N, dtype=torch.int32, device=assign.device)
@@ -216,7 +243,6 @@ def byte_track_step(state: ByteTrackState, boxes_xyxy, scores, valid,
     """One frame: ``boxes_xyxy (N, 4)``, ``scores (N,)``, ``valid (N,)``;
     ``warp (2, 3)`` optionally maps previous-frame coordinates into this
     frame. Returns ``(new_state, det_ids (N,) int32)``."""
-    refuse_unported(cfg.exact_match)
     K = cfg.max_tracks
     dev = state.mean.device
     N = boxes_xyxy.shape[0]
@@ -246,16 +272,17 @@ def byte_track_step(state: ByteTrackState, boxes_xyxy, scores, valid,
     # stage 1: activated tracked + lost vs high detections
     pool1 = (state.tracked & state.activated) | state.lost
     sim1 = iou * scores[None, :] if cfg.fuse_score else iou
-    a1 = _greedy_match(sim1, pool1, high, 1.0 - cfg.match_thresh, rounds)
+    match = _exact_match if cfg.exact_match else _greedy_match
+    a1 = match(sim1, pool1, high, 1.0 - cfg.match_thresh, rounds)
     taken = _det_taken(a1, N)
     # stage 2: remaining activated-tracked vs low detections (IoU only)
     rem = state.tracked & state.activated & (a1 < 0)
-    a2 = _greedy_match(iou, rem, low & ~taken,
+    a2 = match(iou, rem, low & ~taken,
                        1.0 - cfg.second_match_thresh, rounds)
     taken = taken | _det_taken(a2, N)
     # stage 3: unconfirmed tracks vs remaining high detections (fused)
     unconf = state.tracked & ~state.activated
-    a3 = _greedy_match(sim1, unconf, high & ~taken,
+    a3 = match(sim1, unconf, high & ~taken,
                        1.0 - cfg.unconfirmed_match_thresh, rounds)
     taken = taken | _det_taken(a3, N)
 
@@ -347,7 +374,6 @@ def track_sequence_ids(boxes_xyxy, scores, valid,
     ``valid (T, N)`` → ``(T, N)`` int32 det→track-id map (−1 = no track),
     on the boxes' device. ``motion (T-1, 2, 3)``: optional per-pair camera
     warps (frame t → t+1), the BoT-SORT configuration."""
-    refuse_unported(cfg.exact_match)
     boxes = torch.as_tensor(boxes_xyxy, dtype=torch.float32)
     dev = boxes.device
     scores = torch.as_tensor(scores, dtype=torch.float32, device=dev)

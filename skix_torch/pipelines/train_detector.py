@@ -3,7 +3,9 @@
 Port of ``skix/pipelines/train_detector.py``: the fixed-shape COCO loader
 (:mod:`skix_torch.data`), the detector with its DAC one-to-many queries and
 per-layer aux scores, the matched losses (``sam3_detection_loss`` with the
-IoU-aware BCE and presence terms, ``sam3_mask_loss`` on the full grid), and
+IoU-aware BCE and presence terms, greedy or, with ``loss.exact_match``, the
+exact auction; ``sam3_mask_loss`` on the full grid or, with
+``loss.mask_points``, on PointRend's sampled points), and
 both optimizer schemes (:func:`build_optimizer`), as optax computes them:
 ``simple``, global-norm clipping then AdamW with a cosine-decayed learning
 rate; ``sam3``, the reference's full fine-tuning recipe. It writes the same
@@ -23,8 +25,9 @@ sam3`` and a converted ``init_checkpoint`` is the configuration that
 fine-tunes real SAM3 weights; its trunk runs the interleaved rope through
 the same kernels.
 
-Still to port, each raising ``NotImplementedError``: exact matching
-(``loss.exact_match``) and the PointRend mask loss (``loss.mask_points``).
+As in skix, ``exact_match`` reaches the detection loss only: the mask loss
+matches greedily. The PointRend points are drawn from a CPU generator seeded
+``seed + 1`` (skix's ``mask_rng``), which advances with every step's draws.
 """
 
 from __future__ import annotations
@@ -150,7 +153,8 @@ def build_optimizer(cfg, model, steps: int):
 
 def make_loss_fn(model, cfg, size: int):
     """skix's ``loss_fn``: ``batch`` (dict of tensors on the model's device)
-    → ``(loss, det, msk)``."""
+    → ``(loss, det, msk)``. With ``loss.mask_points`` each call draws its
+    points from one CPU generator seeded ``seed + 1``."""
     from skix_torch.tracking.matcher import sam3_detection_loss, sam3_mask_loss
 
     apply_dac = bool(cfg.get("dac", True))
@@ -163,6 +167,8 @@ def make_loss_fn(model, cfg, size: int):
     exact = bool(lcfg.get("exact_match", False))
     mask_points = lcfg.get("mask_points")
     mask_points = int(mask_points) if mask_points else None
+    generator = (torch.Generator().manual_seed(int(cfg.get("seed", 0)) + 1)
+                 if mask_points else None)
 
     def loss_fn(batch):
         imgs = batch["images"].to(torch.float32) / 255.0
@@ -176,7 +182,8 @@ def make_loss_fn(model, cfg, size: int):
                                   cls=cls_kind, w_class=w_class,
                                   w_presence=w_presence)
         msk = sam3_mask_loss(out, gt, batch["masks"], batch["valid"],
-                             exact=exact, num_sample_points=mask_points)
+                             num_sample_points=mask_points,
+                             generator=generator)
         return det + mask_w * msk, det, msk
 
     return loss_fn
@@ -202,13 +209,6 @@ def main(cfg) -> TrainRun:
     from skix_torch.data import CocoDataset, CocoLoader
     from skix_torch.pipelines.videopose3d import save_checkpoint
 
-    from skix_torch.tracking.matcher import refuse_unported
-
-    # what is not ported is refused before any weights or data load
-    lcfg = dict(cfg.get("loss", {}) or {})
-    refuse_unported(bool(lcfg.get("exact_match", False)),
-                    int(lcfg["mask_points"]) if lcfg.get("mask_points")
-                    else None)
     device = resolve_device(cfg.get("device"))
     on_card = device.type == "cuda"
     model = build_detector(cfg, device)

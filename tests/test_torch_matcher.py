@@ -4,8 +4,15 @@ Both packages take the same fixed ``Sam3Detections``-shaped arrays (boxes,
 logits, masks, per-layer aux and DAC o2m outputs), made from a numpy seed:
 the greedy assignments, with and without ``repeats``, are the same pairs;
 the loss values agree to 1e-5 relative, and the gradients of the losses
-with respect to the predictions to 1e-5 of their largest element.
+with respect to the predictions to 1e-5 of their largest element. So do
+the exact (auction) matching's losses and the PointRend sampled mask loss,
+whose candidate points are the same numbers on both sides: skix's
+``jax.random.uniform`` and the port's ``matcher.uniform_points`` are
+patched to draws that depend on the shape only (:func:`_same_points`).
 """
+
+import contextlib
+
 
 import numpy as np
 import pytest
@@ -173,11 +180,105 @@ def test_sam3_mask_loss_matches_skix(seed):
 
 
 def test_unported_matching_raises():
-    pred, gt, valid, masks = _detections(0)
-    det = _port(pred)
-    with pytest.raises(NotImplementedError, match="auction"):
-        TM.sam3_detection_loss(det, torch.as_tensor(gt),
-                               torch.as_tensor(valid), exact=True)
-    with pytest.raises(NotImplementedError, match="PointRend"):
+    """The exact (auction) matching in the detection loss, o2o with the aux
+    layers and o2m with three repeats, as train_detector calls it with
+    ``loss.exact_match``: skix's loss and gradients. The name is the one
+    this test had while the port refused the option."""
+    pred, gt, valid, _ = _detections(0)
+    kw = dict(cls="iabce", w_class=20.0, w_presence=20.0, exact=True)
+
+    def skix_loss(p):
+        return SM.sam3_detection_loss(_skix(p), jnp.asarray(gt),
+                                      jnp.asarray(valid), **kw)
+
+    want, want_g = jit0(jax.value_and_grad(skix_loss))(pred)
+    det = _port(pred, grad=True)
+    got = TM.sam3_detection_loss(det, torch.as_tensor(gt),
+                                 torch.as_tensor(valid), **kw)
+    _rel(got, want)
+    got.backward()
+    for name in ("boxes_cxcywh", "scores", "o2m_boxes", "o2m_scores"):
+        g, w = getattr(det, name).grad, np.asarray(want_g[name])
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5 * np.abs(w).max(),
+                                   rtol=0, err_msg=name)
+
+
+def _draws(shape):
+    """Uniform numbers that depend on the last three axes of ``shape`` only
+    (skix draws per image under ``vmap``: every image gets the same)."""
+    seed = int(np.prod(shape[-3:]))
+    return np.random.default_rng(seed).random(shape[-3:]).astype(np.float32)
+
+
+@contextlib.contextmanager
+def _same_points():
+    """skix's ``jax.random.uniform`` and the port's ``uniform_points`` give
+    :func:`_draws`' numbers."""
+    orig_j, orig_t = jax.random.uniform, TM.uniform_points
+
+    def fake_j(key, shape=(), *a, **k):
+        return jnp.asarray(_draws(shape))
+
+    def fake_t(generator, shape, device):
+        return torch.as_tensor(_draws(shape)).expand(shape).to(device)
+
+    jax.random.uniform, TM.uniform_points = fake_j, fake_t
+    try:
+        yield
+    finally:
+        jax.random.uniform, TM.uniform_points = orig_j, orig_t
+
+
+def test_point_sample_matches_skix():
+    """Bilinear taps with zeros outside, points inside and outside [0, 1]²."""
+    r = np.random.default_rng(4)
+    masks = r.normal(size=(3, 5, 9, 7)).astype(np.float32)
+    coords = r.uniform(-0.1, 1.1, (3, 5, 40, 2)).astype(np.float32)
+    want = np.asarray(jit0(SM.point_sample)(masks, coords))
+    got = TM.point_sample(torch.tensor(masks), torch.tensor(coords)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+def test_uncertain_point_coords_matches_skix():
+    """The same candidates: the same importance picks (a stable sort on
+    −|logit|) and the same fresh points."""
+    r = np.random.default_rng(5)
+    logits = r.normal(0, 2, (Q, HM, HM)).astype(np.float32)
+    with _same_points():
+        want = np.asarray(jit0(lambda m, k: SM.uncertain_point_coords(
+            m, k, 20))(logits, jax.random.PRNGKey(0)))
+        got = TM.uncertain_point_coords(torch.tensor(logits),
+                                        torch.Generator(), 20).numpy()
+    assert got.shape == (Q, 20, 2)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_sampled_mask_loss_matches_skix(exact):
+    """PointRend's focal + dice on 24 points a mask, the ground truth
+    sampled at its 9 × 9 resolution; loss and gradients within 1e-5 of
+    their scale."""
+    pred, gt, valid, masks = _detections(1)
+
+    def skix_loss(p):
+        return SM.sam3_mask_loss(_skix(p), jnp.asarray(gt),
+                                 jnp.asarray(masks), jnp.asarray(valid),
+                                 exact=exact, num_sample_points=24,
+                                 rng=jax.random.PRNGKey(0))
+
+    with _same_points():
+        want, want_g = jit0(jax.value_and_grad(skix_loss))(pred)
+        det = _port(pred, grad=True)
+        got = TM.sam3_mask_loss(det, torch.as_tensor(gt),
+                                torch.as_tensor(masks),
+                                torch.as_tensor(valid), exact=exact,
+                                num_sample_points=24,
+                                generator=torch.Generator())
+    _rel(got, want)
+    got.backward()
+    w = np.asarray(want_g["mask_logits"])
+    np.testing.assert_allclose(det.mask_logits.grad.numpy(), w,
+                               atol=1e-5 * np.abs(w).max(), rtol=0)
+    with pytest.raises(ValueError, match="generator"):
         TM.sam3_mask_loss(det, torch.as_tensor(gt), torch.as_tensor(masks),
-                          torch.as_tensor(valid), num_sample_points=16)
+                          torch.as_tensor(valid), num_sample_points=24)

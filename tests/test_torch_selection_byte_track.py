@@ -176,8 +176,15 @@ def test_kalman_and_gmc_steps_match_skix():
 
 
 def test_exact_match_raises_naming_the_training_slice():
-    boxes, scores, valid = _stream(0)
-    with pytest.raises(NotImplementedError, match="auction"):
-        tbt.track_sequence_ids(torch.tensor(boxes), torch.tensor(scores),
-                               torch.tensor(valid),
-                               tbt.ByteTrackConfig(exact_match=True))
+    """``exact_match: true`` (the auction with the ``1 − thresh`` gate in
+    every association stage) runs and gives skix's ids on a 32-frame
+    stream. The name is the one this test had while the port refused the
+    option."""
+    boxes, scores, valid = _stream(0, T=32)
+    cfg_j = jbt.ByteTrackConfig(max_tracks=8, exact_match=True)
+    cfg_t = tbt.ByteTrackConfig(max_tracks=8, exact_match=True)
+    want = _skix_ids(boxes, scores, valid, cfg_j)
+    got = tbt.track_sequence_ids(torch.tensor(boxes), torch.tensor(scores),
+                                 torch.tensor(valid), cfg_t).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got >= 0).sum() > 32          # the tracker emitted ids
