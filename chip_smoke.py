@@ -188,12 +188,29 @@ Phases, one line each (the last line is the JSON verdict):
               (configs/train_pose.yaml as it is, YOLOv8-s at 640 px, batch
               8, 6 steps on a 16-image keypoints fixture, ms a step, peak
               memory, the checkpoint read back and a resume from it);
+9d. tools     the post-run tools: tools_ref (card against CPU on seeded
+              inputs: solve_rt_from_3d on 2 views x 300 frames x 17 joints,
+              cameras only and with refine_points; icp on 4096-point maps;
+              the FovEstimator from converted variables; report's
+              pose_summary; device_prefetch against synchronous copies),
+              then tools at the sizes users run them, each step's time and
+              peak device memory: rt_solver at the chain's size (2 x 900 x
+              17, refine_points, 60 LM steps x 30 CG), icp on 16384-point
+              maps, estimate_focal_lengths on 64 frames of 1080p,
+              read_video_chunks with and without device_prefetch,
+              validate_records, report over a run_all-shaped tree,
+              vis_3d_kpt (where matplotlib is installed; said so where it
+              is not), camera_calibration on a 600-frame 1080p chessboard
+              video, and the launcher's two processes running fuse over 4
+              persons on the card;
 10. kernels   one JSON object per kernel (and K1/K2 mode) of the paths, its
               rope styles under "modes", then one per TPU probe B1-B7 (K2's
               variants, launched on no path) with its variants' rows.
 
 ``python3 chip_smoke.py --only views,prep`` runs the build and these
-phase groups alone (GROUPS), with no kernels line and no verdict.
+phase groups alone (GROUPS), with no kernels line and no verdict;
+``--only tools`` runs the post-run tools' phases, which make their own
+inputs.
 
 cuDNN's TF32 is turned off in phase 4 (float32 convolutions, to compare
 card and CPU) and stays off for the phases after it; matmuls keep
@@ -209,6 +226,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1330,6 +1348,31 @@ def main_phase(tmp: Path, device: str = "cuda"):
 # --------------------------------------------------------------------------
 # phase 5b: the same run warm, then once more under the profiler
 # --------------------------------------------------------------------------
+def device_kernels(prof):
+    """The device's kernels (and copies) of a ``torch.profiler`` run, by
+    name: ``key``, ``count`` and ``self_device_time_total`` (µs), as
+    ``key_averages()`` gives them for device events, summed from the raw
+    activity records. ``key_averages()`` first builds a Python object per
+    event and its CPU-side tree: 30–60 s for a run of 150 000–300 000
+    kernels (the host-bound LM's), against well under a second here."""
+    from types import SimpleNamespace
+
+    import torch
+
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.duration_ns() / 1e3
+        if us <= 0:
+            continue
+        agg = by_name.setdefault(ev.name(), SimpleNamespace(
+            key=ev.name(), count=0, self_device_time_total=0.0))
+        agg.count += 1
+        agg.self_device_time_total += us
+    return list(by_name.values())
+
+
 def profile_phase(tmp: Path, cfg: dict):
     """A warm rerun of the main path (host clock, per-span means), then one
     under ``torch.profiler`` (device activity only: the host's events of
@@ -1357,9 +1400,7 @@ def profile_phase(tmp: Path, cfg: dict):
         run_all(prof_cfg)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     flash_ms = sum(e.self_device_time_total for e in kernels
                    if "flash_fwd" in e.key) / 1e3
@@ -1589,9 +1630,7 @@ def front_profile_phase(tmp: Path, frames, phase: str = "front", extra=None):
         _front_run(tmp, tmp / f"{phase}_prof", frames, extra)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     by_kernel = {name: sum(e.self_device_time_total for e in kernels
                            if name in e.key) / 1e3
@@ -2248,9 +2287,7 @@ def chain_phase(tmp: Path, device: str = "cuda", persons=None, T=None,
         run_all(chain_cfg(one, one / "prof", device, **size))
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     say("chain_profile", persons=1, wall_ms=round(prof_wall_ms, 1),
@@ -2541,9 +2578,7 @@ def side_phase(tmp: Path, device: str = "cuda"):
         side_main(cfg(root / "prof"))
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     k1_ms = sum(e.self_device_time_total for e in kernels
                 if "flash_fwd_kernel" in e.key) / 1e3
@@ -3021,9 +3056,7 @@ def _vggt_profile(phase: str, cfg: dict, forward_ms: float):
         V.main(cfg)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    kernels = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     k1 = sum(e.self_device_time_total for e in kernels
              if "flash_fwd_kernel" in e.key) / 1e3
@@ -3724,9 +3757,7 @@ def prep_phase(tmp: Path, device: str = "cuda", T: int = PREP_T,
                                    **{**PREP_OVER, **over}))
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0]
+        kernels = device_kernels(prof)
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         k1_ms = sum(e.self_device_time_total for e in kernels
                     if "flash_fwd_kernel" in e.key) / 1e3
@@ -4132,9 +4163,7 @@ def side_det_phase(tmp: Path, device: str = "cuda"):
         PS.main(one(root / "prof"))
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     gemm_ms = sum(e.self_device_time_total for e in kernels
                   if "gemm" in e.key.lower() or "sgemm" in e.key.lower()
@@ -4274,9 +4303,7 @@ def front_compact_phase(tmp: Path, device: str = "cuda"):
         front_main(_compact_cfg(root / "videos", root / "prof", device))
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     k1_ms = sum(e.self_device_time_total for e in kernels
                 if "flash_fwd_kernel" in e.key) / 1e3
@@ -4686,9 +4713,7 @@ def image_edit_phase(tmp: Path):
         ed.infer_camera_edit(frame, **edit)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    kernels = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     k1 = sum(e.self_device_time_total for e in kernels
              if "flash_fwd_kernel" in e.key) / 1e3
@@ -5106,9 +5131,7 @@ def train_profile_phase(tmp: Path, run):
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
 
     def kind(key):
@@ -5460,14 +5483,629 @@ def pose_train_phase(tmp: Path):
     return launches, {}
 
 
+# --------------------------------------------------------------------------
+# phase 9d: the post-run tools (report, vis_3d_kpt, camera_calibration,
+# validate_records, the R|t solver, ICP, the FOV estimator, prefetch, the
+# launcher); host code where skix's is (OpenCV, matplotlib), the rest on
+# the card. No kernel of ours is on this path.
+# --------------------------------------------------------------------------
+TOOLS_REF_T, TOOLS_T, TOOLS_J = 300, 900, 17     # frames × joints a view
+TOOLS_K = [[1400.0, 0.0, 960.0], [0.0, 1400.0, 540.0], [0.0, 0.0, 1.0]]
+TOOLS_RIG_ROTVEC = (0.05, 0.4, 0.02)             # the right camera's turn
+TOOLS_REF_STEPS = dict(max_steps=20, cg_iters=20)
+TOOLS_ICP_REF_N, TOOLS_ICP_N, TOOLS_ICP_ITERS = 4096, 16384, 10
+TOOLS_FOV_REF = (16, (270, 480))                 # frames, (H, W)
+TOOLS_FOV = (64, (1080, 1920), 16)               # frames, (H, W), batch
+TOOLS_CLIP_T, TOOLS_PREFETCH_CHUNKS = 256, 32
+TOOLS_PERSONS = 2
+# vis_3d_kpt every 10th frame (the config's stride 1 draws 900 matplotlib
+# figures a person): 90 frames a person
+TOOLS_VIS_STRIDE = 10
+CALIB_VIEWS, CALIB_STRIDE, CALIB_BOARD, CALIB_SQUARE_MM = 60, 10, (9, 6), 25.0
+MATPLOTLIB_DRAWN = ("vis_3d_kpt,plot_3d_frame,plot_scene,render_animation,"
+                    "report_plot")
+
+
+def rotvec_matrix(rv):
+    """Rodrigues: a rotation vector → its matrix (numpy, float64)."""
+    import numpy as np
+
+    a = np.asarray(rv, float)
+    th = np.linalg.norm(a)
+    k = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]]) / th
+    return np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
+
+
+def skier_rig(T: int, seed: int, noise_px: float):
+    """Two views of a 17-joint skier crossing 12 m of slope 18–22 m out
+    over T frames: the left camera at the origin, the right one 8 m to the
+    side and turned 0.4 rad; 1080p pixels with ``noise_px`` of noise,
+    confidences in [0.3, 1], the 3D points perturbed by 5 cm (a lifted
+    pose's error). Returns (K, t_right, X, uv_left, uv_right, conf)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    K = np.asarray(TOOLS_K)
+    R_r, t_r = rotvec_matrix(TOOLS_RIG_ROTVEC), np.array([-8.0, 0.3, 1.0])
+    body = rng.normal(size=(TOOLS_J, 3)) * [0.25, 0.5, 0.2]
+    s = np.linspace(0.0, 1.0, T)[:, None]
+    path = np.concatenate([-6 + 12 * s, 0.3 * np.sin(6 * s),
+                           18 + 4 * s], -1)
+    X = (body[None] + path[:, None]
+         + rng.normal(size=(T, TOOLS_J, 3)) * 0.01).reshape(-1, 3)
+
+    def proj(R, t):
+        Xc = X @ R.T + t
+        return Xc[:, :2] / Xc[:, 2:] * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+
+    n = len(X)
+    uv_l = proj(np.eye(3), np.zeros(3)) + rng.normal(size=(n, 2)) * noise_px
+    uv_r = proj(R_r, t_r) + rng.normal(size=(n, 2)) * noise_px
+    conf = rng.uniform(0.3, 1.0, n)
+    return K, t_r, X + rng.normal(size=X.shape) * 0.05, uv_l, uv_r, conf
+
+
+def skier_init(t_r):
+    """The right camera's start: 0.05 rad and 0.5 m off the rig."""
+    import numpy as np
+
+    return {"rl": np.zeros(3, np.float32), "tl": np.zeros(3, np.float32),
+            "rr": np.array([0.08, 0.36, 0.0], np.float32),
+            "tr": (t_r + [0.4, -0.2, 0.3]).astype(np.float32)}
+
+
+def point_maps(n: int, seed: int):
+    """Two seeded point maps of ``n`` points (a skier-sized surface 6 m
+    out, a second view's map of it turned 0.15 rad and shifted 10 cm, with
+    1 cm of noise and 1 point in 20 an outlier), the source's projections
+    (1080p) and the person box around them (their 3rd to 97th
+    percentiles), for the bbox gate."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(0, 2 * np.pi, n)
+    h = rng.uniform(-0.9, 0.9, n)
+    tgt = np.stack([0.25 * np.cos(u), h, 6.0 + 0.2 * np.sin(u)], -1)
+    tgt += rng.normal(size=tgt.shape) * 0.02
+    a = 0.15
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                  [-np.sin(a), 0, np.cos(a)]])
+    src = (tgt[rng.permutation(n)] - [0.1, 0.02, -0.05]) @ R
+    src += rng.normal(size=src.shape) * 0.01
+    src[::20] += rng.normal(size=src[::20].shape) * 0.5
+    uv = src[:, :2] / src[:, 2:] * 1400.0 + [960.0, 540.0]
+    box = [*np.percentile(uv, 3, axis=0), *np.percentile(uv, 97, axis=0)]
+    return src.astype(np.float32), tgt.astype(np.float32), uv, box
+
+
+def fov_variables(seed: int, width: int = 32, depth: int = 4) -> dict:
+    """skix FovEstimator variables (flax layout, numpy) drawn from ``seed``:
+    kernels with variance 1/fan_in, GroupNorm scales near 1, small biases."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    params, cin = {}, 3
+    for i in range(depth):
+        c = width * (1 + i // 2)
+        params[f"conv_{i}"] = {
+            "kernel": (rng.normal(size=(3, 3, cin, c)) / np.sqrt(9 * cin)
+                       ).astype(np.float32),
+            "bias": (0.05 * rng.normal(size=c)).astype(np.float32)}
+        params[f"norm_{i}"] = {
+            "scale": (1 + 0.05 * rng.normal(size=c)).astype(np.float32),
+            "bias": (0.05 * rng.normal(size=c)).astype(np.float32)}
+        cin = c
+    params["head"] = {"kernel": (rng.normal(size=(cin, 2)) / np.sqrt(cin)
+                                 ).astype(np.float32),
+                      "bias": (0.05 * rng.normal(size=2)).astype(np.float32)}
+    return {"params": params}
+
+
+def _rt_errs(cpu, card, baseline: float):
+    import torch
+
+    def d(a, b):
+        return float((a.cpu() - b.cpu()).abs().max())
+
+    def rel(s):
+        return (s.R_right @ s.R_left.T).cpu()
+
+    R = max(d(cpu.R_left, card.R_left), d(cpu.R_right, card.R_right))
+    t = max(d(cpu.t_left, card.t_left), d(cpu.t_right, card.t_right))
+    return {"R": R, "R_rel": d(rel(cpu), rel(card)),
+            "t_of_baseline": t / baseline, "X": d(cpu.X, card.X),
+            "cost_cpu": float(cpu.final_cost),
+            "cost_card": float(card.final_cost),
+            "initial_cost": float(cpu.initial_cost),
+            "finite": all(bool(torch.isfinite(x).all()) for x in card)}
+
+
+def tools_reference_phase(tmp: Path):
+    """The card against the CPU on the same seeded inputs: solve_rt_from_3d
+    on 2 views × TOOLS_REF_T frames × 17 joints, cameras only (from the
+    RANSAC start, 0.5 px of noise): R within 1e-4, t within 1e-4 of the
+    baseline, the final cost within 1e-4 relative; with refine_points
+    (exact observations, the points 5 cm off), TOOLS_REF_STEPS each: both
+    final costs below 1e-6 of the initial cost. With the points free skix's
+    problem leaves the cameras' and points' similarity gauge free and has a
+    flat bas-relief direction (a narrow view of a skier 20 m out), so its
+    poses are not a function of the data at float32: on the CPU alone a
+    1e-7 relative change of the input points moves R by 2.1e-4 and the
+    relative rotation by 5.6e-5 (20 × 20; 5.4e-4 at 60 × 30); their
+    differences are printed, not held; icp on TOOLS_ICP_REF_N points a
+    map, bbox-gated:
+    the last iteration's nearest indices equal, R, t, rms and inlier_frac
+    within 1e-5; the FovEstimator forward on TOOLS_FOV_REF frames from
+    seeded, converted variables within 1e-5 rad; report's pose_summary on a
+    (TOOLS_REF_T, 70, 3) and a (TOOLS_REF_T, 17, 3) sequence within 1e-5
+    relative; device_prefetch over TOOLS_PREFETCH_CHUNKS chunks each equal
+    to a synchronous copy, in order."""
+    import numpy as np
+    import torch
+
+    from skix_torch.geometry.icp import bbox_gate_mask, icp
+    from skix_torch.io.prefetch import device_prefetch
+    from skix_torch.models.fov import load_fov_estimator
+    from skix_torch.pipelines.report import pose_summary
+    from skix_torch.solvers.rt_solver import solve_rt_from_3d
+
+    t0 = time.perf_counter()
+    bad = []
+    for mode in ("cameras", "points"):
+        points = mode == "points"
+        K, t_r, X, uv_l, uv_r, conf = skier_rig(TOOLS_REF_T, 211,
+                                                0.0 if points else 0.5)
+        base = float(np.linalg.norm(t_r))
+        kw = dict(conf=conf, refine_points=points, **TOOLS_REF_STEPS)
+        if points:
+            kw["init"] = skier_init(t_r)
+        else:
+            kw["baseline_m"] = base
+        sols = {dev: solve_rt_from_3d(X, uv_l, uv_r, K, device=dev, **kw)
+                for dev in ("cpu", "cuda")}
+        e = _rt_errs(sols["cpu"], sols["cuda"], base)
+        if points:
+            held = "costs<1e-6*initial"
+            ok = max(e["cost_cpu"], e["cost_card"]) <= 1e-6 * e["initial_cost"]
+        else:
+            held = "R1e-4,t1e-4_of_baseline,cost1e-4_rel"
+            ok = (e["R"] <= 1e-4 and e["t_of_baseline"] <= 1e-4
+                  and abs(e["cost_card"] - e["cost_cpu"])
+                  <= 1e-4 * e["cost_cpu"])
+        say("tools_ref", check=f"rt_{mode}", points=len(X),
+            R_err=e["R"], R_rel_err=e["R_rel"],
+            t_err_of_baseline=e["t_of_baseline"], X_err=e["X"],
+            cost_cpu=e["cost_cpu"], cost_card=e["cost_card"],
+            initial_cost=e["initial_cost"], held=held)
+        if not (ok and e["finite"]):
+            bad.append(f"rt_{mode}")
+
+    src, tgt, uv, box = point_maps(TOOLS_ICP_REF_N, 223)
+    gate = bbox_gate_mask(torch.as_tensor(uv), box)
+    res = {dev: icp(src, tgt, source_valid=gate, iterations=TOOLS_ICP_ITERS,
+                    device=dev) for dev in ("cpu", "cuda")}
+    same_nn = torch.equal(res["cpu"].nn_idx, res["cuda"].nn_idx.cpu())
+    errs = {k: float((getattr(res["cpu"], k) - getattr(res["cuda"], k).cpu())
+                     .abs().max()) for k in ("R", "t", "rms", "inlier_frac")}
+    say("tools_ref", check="icp", points=TOOLS_ICP_REF_N,
+        gated=int(gate.sum()), nn_idx_equal=same_nn,
+        rms=float(res["cuda"].rms), **{f"{k}_err": v for k, v in errs.items()},
+        limit=1e-5)
+    if not same_nn or max(errs.values()) > 1e-5:
+        bad.append("icp")
+
+    n, (H, W) = TOOLS_FOV_REF
+    frames = np.random.default_rng(227).integers(0, 256, (n, H, W, 3),
+                                                 dtype=np.uint8)
+    variables = fov_variables(229)
+    fov = {}
+    for dev in ("cpu", "cuda"):
+        model = load_fov_estimator(variables, device=dev)
+        with torch.no_grad():
+            x = torch.as_tensor(frames, device=dev).float() / 255.0
+            fov[dev] = model(x).cpu()
+    err = float((fov["cpu"] - fov["cuda"]).abs().max())
+    say("tools_ref", check="fov", frames=n, hw=f"{H}x{W}", max_abs_err_rad=err,
+        fov_deg=json.dumps([round(float(v), 3) for v in torch.rad2deg(
+            fov["cuda"]).aminmax()]),
+        limit=1e-5)
+    if not err <= 1e-5:
+        bad.append("fov")
+
+    rng = np.random.default_rng(233)
+    worst = 0.0
+    for J in (70, 17):
+        seq = (rng.normal(size=(1, J, 3)) * 0.3 + rng.normal(
+            size=(TOOLS_REF_T, J, 3)).cumsum(0) * 0.01).astype(np.float32)
+        a, b = pose_summary(seq, "cpu"), pose_summary(seq, "cuda")
+        for k, v in a.items():
+            if isinstance(v, float):
+                worst = max(worst, abs(b[k] - v) / max(abs(v), 1e-30))
+            elif b[k] != v:
+                worst = float("inf")
+    say("tools_ref", check="pose_summary", shapes="300x70x3,300x17x3",
+        max_rel_err=worst, limit=1e-5)
+    if not worst <= 1e-5:
+        bad.append("pose_summary")
+
+    chunks = [np.random.default_rng(239 + i).integers(
+        0, 256, (4, 270, 480, 3), dtype=np.uint8)
+        for i in range(TOOLS_PREFETCH_CHUNKS)]
+    got = list(device_prefetch(iter(chunks)))
+    ok = len(got) == len(chunks) and all(
+        g.is_cuda and torch.equal(g, torch.as_tensor(c).cuda())
+        for g, c in zip(got, chunks))
+    say("tools_ref", check="device_prefetch", chunks=len(got),
+        equal_in_order=ok)
+    if not ok:
+        bad.append("device_prefetch")
+    say("tools_ref", wall_s=round(time.perf_counter() - t0, 1),
+        failed=",".join(bad) or "none")
+    if bad:
+        fail(f"tools_ref: {bad} off the card-vs-CPU limits")
+
+
+def write_tools_tree(root: Path, persons: int, T: int, seed: int):
+    """A run_all-shaped output tree: per person fused/<p>/<p>_fused.npy and
+    <p>_smoothed.npy (T, 70, 3) and sam3d/<p>/cam_{left,right}/frame_*.npz
+    (SAM-3D-Body's per-frame fields), and a Unity-GT npy; returns its
+    path."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for i in range(persons):
+        p = f"p{i + 1:02d}"
+        seq = (rng.normal(size=(1, 70, 3)) * 0.3 + [0, 0, 6.0]
+               + rng.normal(size=(T, 70, 3)).cumsum(0) * 0.005
+               ).astype(np.float32)
+        d = root / "fused" / p
+        d.mkdir(parents=True)
+        np.save(d / f"{p}_fused.npy", seq)
+        np.save(d / f"{p}_smoothed.npy", seq)
+        for view in ("cam_left", "cam_right"):
+            v = root / "sam3d" / p / view
+            v.mkdir(parents=True)
+            for t in range(T):
+                np.savez(v / f"frame_{t:06d}.npz",
+                         pred_keypoints_3d=seq[t],
+                         pred_keypoints_2d=(rng.uniform(0, 1080, (70, 2))
+                                            .astype(np.float32)))
+    gt = root.parent / "unity_gt.npy"
+    np.save(gt, (rng.normal(size=(T, 70, 3)) * 0.3).astype(np.float32))
+    return gt
+
+
+def chessboard_clip(path: Path):
+    """A 1080p mp4 of CALIB_VIEWS × CALIB_STRIDE frames: each of
+    CALIB_VIEWS seeded poses of a 9 × 6-corner, 25 mm board, rendered on the
+    host with a perspective warp through TOOLS_K, held for CALIB_STRIDE
+    frames. Returns the true K."""
+    import cv2
+    import numpy as np
+
+    cols, rows = CALIB_BOARD
+    px = 40                                   # board pixels a square
+    board = np.full(((rows + 3) * px, (cols + 3) * px), 255, np.uint8)
+    for r in range(rows + 1):
+        for c in range(cols + 1):
+            if (r + c) % 2 == 0:
+                board[(r + 1) * px:(r + 2) * px, (c + 1) * px:(c + 2) * px] = 0
+    # board pixel (u, v) → plane mm; the first inner corner is the edge at
+    # pixel 2·px, i.e. coordinate 2·px − 0.5 in OpenCV's pixel centres
+    mm = CALIB_SQUARE_MM / px
+    A = np.array([[mm, 0, -(2 * px - 0.5) * mm], [0, mm, -(2 * px - 0.5) * mm],
+                  [0, 0, 1]])
+    K = np.asarray(TOOLS_K)
+    outer = np.array([[-2, -2, 0], [cols + 1, -2, 0], [cols + 1, rows + 1, 0],
+                      [-2, rows + 1, 0]], float) * CALIB_SQUARE_MM
+    rng = np.random.default_rng(241)
+    out = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 30.0,
+                          (1920, 1080))
+    try:
+        made = 0
+        while made < CALIB_VIEWS:
+            rvec = rng.normal(size=3) * [0.35, 0.35, 0.2]
+            tvec = np.array([rng.uniform(-150, 50), rng.uniform(-100, 30),
+                             rng.uniform(450, 750)])
+            R, _ = cv2.Rodrigues(rvec)
+            corners, _ = cv2.projectPoints(outer, rvec, tvec, K, None)
+            c = corners.reshape(-1, 2)
+            if (c[:, 0].min() < 20 or c[:, 1].min() < 20
+                    or c[:, 0].max() > 1900 or c[:, 1].max() > 1060):
+                continue
+            H = K @ np.column_stack([R[:, 0], R[:, 1], tvec]) @ A
+            img = cv2.warpPerspective(board, H, (1920, 1080),
+                                      flags=cv2.INTER_LINEAR,
+                                      borderValue=110)
+            frame = cv2.cvtColor(img, cv2.COLOR_GRAY2BGR)
+            for _ in range(CALIB_STRIDE):
+                out.write(frame)
+            made += 1
+    finally:
+        out.release()
+    return K
+
+
+def write_fuse_persons(root: Path, n: int, T: int, seed: int) -> list:
+    """``n`` person dirs of fuse's input: cam_left.npz and cam_right.npz
+    with SAM-3D-Body's ``pred_keypoints_3d`` (T, 70, 3) and
+    ``pred_keypoints_2d``; returns the person names."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    names = [f"p{i + 1:02d}" for i in range(n)]
+    for p in names:
+        seq = rng.normal(size=(1, 70, 3)) * 0.3 + rng.normal(
+            size=(T, 70, 3)).cumsum(0) * 0.005
+        for view in ("cam_left", "cam_right"):
+            (root / p).mkdir(parents=True, exist_ok=True)
+            np.savez(root / p / f"{view}.npz",
+                     pred_keypoints_3d=(seq + rng.normal(size=seq.shape)
+                                        * 0.01).astype(np.float32),
+                     pred_keypoints_2d=rng.uniform(0, 1080, (T, 70, 2)
+                                                   ).astype(np.float32))
+    return names
+
+
+def tools_phase(tmp: Path):
+    """The post-run tools at the sizes users run, each step's time and peak
+    device memory: rt_solver at the chain's size (2 views × TOOLS_T × 17,
+    refine_points: 45 912 unknowns, from the RANSAC start, configs' 60 LM
+    steps × 30 CG); icp on two TOOLS_ICP_N-point maps, bbox-gated;
+    estimate_focal_lengths on 64 frames of 1080p; read_video_chunks with and
+    without device_prefetch over 256 frames of 1080p; validate_records
+    over 4 records, one malformed; report over a run_all-shaped tree
+    (TOOLS_PERSONS persons × TOOLS_T frames, max_artifacts 64, unity_gt);
+    vis_3d_kpt (fused, stride TOOLS_VIS_STRIDE) where matplotlib is
+    installed, said so where it is not; camera_calibration on a 600-frame
+    1080p chessboard video; the launcher: two processes on the card
+    running fuse over a shard root of 4 persons."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from skix_torch.geometry.icp import bbox_gate_mask, icp
+    from skix_torch.io.prefetch import device_prefetch
+    from skix_torch.io.video import probe_video, read_video_chunks
+    from skix_torch.models.fov import (estimate_focal_lengths,
+                                       load_fov_estimator)
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines import camera_calibration, report
+    from skix_torch.pipelines import validate_records, vis_3d_kpt
+    from skix_torch.solvers.rt_solver import solve_rt_from_3d
+    from skix_torch.utils.launch import shard_work
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    say("tools_device", card=json.dumps(smi.stdout.strip()))
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    say("tools_matplotlib", installed=have_mpl,
+        left_out="none" if have_mpl else MATPLOTLIB_DRAWN,
+        held_by="tests/test_torch_post_tools.py (CPU twins)")
+    times = {}
+
+    def step():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return time.perf_counter()
+
+    def done(name, t0, **fields):
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        times[name] = ms
+        say("tools", step=name, ms=round(ms, 3), peak_mib=round(peak, 1),
+            **fields)
+
+    reset_counts()
+    # the R|t solver at the chain's size
+    K, t_r, X, uv_l, uv_r, conf = skier_rig(TOOLS_T, 251, 1.0)
+    base = float(np.linalg.norm(t_r))
+    t0 = step()
+    sol = solve_rt_from_3d(X, uv_l, uv_r, K, conf=conf, refine_points=True,
+                           baseline_m=base)
+    done("rt_solver", t0, points=len(X), unknowns=12 + X.size,
+         steps_cg="60x30", initial_cost=float(sol.initial_cost),
+         final_cost=float(sol.final_cost),
+         R_right_err=float(np.abs(sol.R_right.cpu().numpy()
+                                  - rotvec_matrix(TOOLS_RIG_ROTVEC)).max()))
+    if not (float(sol.final_cost) < float(sol.initial_cost)
+            and torch.isfinite(sol.X).all()):
+        fail("tools: rt_solver left the cost or non-finite points")
+
+    # ICP on two point maps, bbox-gated
+    src, tgt, uv, box = point_maps(TOOLS_ICP_N, 257)
+    gate = bbox_gate_mask(torch.as_tensor(uv, device="cuda"), box)
+    start = icp(src, tgt, source_valid=gate, iterations=0)    # warm
+    t0 = step()
+    res = icp(src, tgt, source_valid=gate, iterations=TOOLS_ICP_ITERS)
+    done("icp", t0, points=f"{TOOLS_ICP_N}x{TOOLS_ICP_N}",
+         gated=int(gate.sum()), iterations=TOOLS_ICP_ITERS,
+         rms=float(res.rms), rms_at_start=float(start.rms),
+         inlier_frac=float(res.inlier_frac))
+    if not float(res.rms) < float(start.rms):
+        fail(f"tools: icp rms {float(res.rms)} from {float(start.rms)}")
+
+    # the FOV estimator on 1080p frames
+    n, (H, W), batch = TOOLS_FOV
+    frames = np.random.default_rng(263).integers(0, 256, (n, H, W, 3),
+                                                 dtype=np.uint8)
+    model = load_fov_estimator(fov_variables(229))
+    estimate_focal_lengths(model, frames[:batch], batch_size=batch)  # warm
+    t0 = step()
+    f = estimate_focal_lengths(model, frames, batch_size=batch)
+    done("fov", t0, frames=n, batch=batch, hw=f"{H}x{W}")
+    say("tools", step="fov_per_frame", ms=round(times["fov"] / n, 4),
+        focal_px_range=json.dumps([round(float(f.min()), 2),
+                                   round(float(f.max()), 2)]))
+    if f.shape != (n, 2) or not np.isfinite(f).all():
+        fail("tools: estimate_focal_lengths gave no finite (fx, fy) a frame")
+
+    # read_video_chunks without and with device_prefetch, over the first
+    # TOOLS_CLIP_T frames of the calibration's 1080p chessboard clip
+    board = tmp / "tools_board.mp4"
+    K_true = chessboard_clip(board)
+
+    def frames_per_s(prefetch: bool) -> float:
+        t0 = step()
+        chunks = read_video_chunks(board, chunk_size=32,
+                                   max_frames=TOOLS_CLIP_T)
+        seen = 0
+        for c in device_prefetch(chunks) if prefetch else chunks:
+            x = c if prefetch else torch.as_tensor(c).cuda()
+            x.float().mean()
+            seen += len(x)
+        torch.cuda.synchronize()
+        if seen != TOOLS_CLIP_T:
+            fail(f"tools: read {seen} of {TOOLS_CLIP_T} frames")
+        return seen / (time.perf_counter() - t0)
+
+    sync_fps, prefetch_fps = frames_per_s(False), frames_per_s(True)
+    say("tools", step="prefetch", frames=TOOLS_CLIP_T, hw="1080x1920",
+        sync_fps=round(sync_fps, 2), prefetch_fps=round(prefetch_fps, 2),
+        peak_mib=round(torch.cuda.max_memory_allocated() / 2 ** 20, 1))
+
+    # validate_records over 4 records, one malformed
+    from skix_torch.io.contracts import PTInfo, save_pt_info
+
+    recs = tmp / "tools_records"
+    kp = np.zeros((30, 17, 3), np.float32)
+    for i in range(4):
+        save_pt_info(recs / f"p0{i % 2 + 1}" / f"v{i}.npz", PTInfo(
+            video_name=f"v{i}", frame_count=30 if i != 2 else 31,
+            img_shape=(1080, 1920), fps=30.0, duration=1.0,
+            yolo_keypoints=kp, yolo_bbox=np.zeros((30, 4), np.float32)),
+            validate=i != 2)
+    t0 = step()
+    validate_records.main({"paths": {"pt_root": str(recs)}, "strict": False})
+    rep = json.loads((recs / "validation_report.json").read_text())
+    named = sorted(k for k, v in rep.items() if v)
+    done("validate_records", t0, records=len(rep),
+         with_problems=json.dumps(named))
+    if named != ["p01/v2.npz"] or len(rep) != 4:
+        fail(f"tools: validate_records named {named}, not p01/v2.npz")
+
+    # report over a run_all-shaped tree
+    tree = tmp / "tools_run" / "work"
+    gt = write_tools_tree(tree, TOOLS_PERSONS, TOOLS_T, 271)
+    out = tmp / "tools_report"
+    t0 = step()
+    results = report.main({
+        "paths": {"in_root": str(tree), "out_root": str(out)},
+        "patterns": ["**/*.npy", "**/*.npz"], "max_artifacts": 64,
+        "plot": have_mpl, "unity_gt": str(gt)})
+    rj = json.loads((out / "report.json").read_text())
+    poses = {k: r for k, r in rj.items() if "pose" in r}
+    done("report", t0, artifacts=len(rj), pose_artifacts=len(poses),
+         gt_entries=sum("gt" in r for r in rj.values()),
+         errors=sum("error" in r for r in rj.values()), plot=have_mpl)
+    want_pose = {f"fused/p{i + 1:02d}/p{i + 1:02d}_{k}.npy"
+                 for i in range(TOOLS_PERSONS) for k in ("fused", "smoothed")}
+    if (len(rj) != 64 or set(poses) != want_pose or results is None
+            or not all("gt" in r and math.isfinite(r["gt"][
+                "mpjpe_root_centered"]) for r in poses.values())
+            or not (out / "report.md").exists()):
+        fail(f"tools: report.json holds {sorted(poses)} pose entries of "
+             f"{len(rj)} artifacts; wanted {sorted(want_pose)} with gt")
+
+    # vis_3d_kpt over the fused sequences (matplotlib on the host)
+    if have_mpl:
+        vis = tmp / "tools_vis"
+        t0 = step()
+        vis_3d_kpt.main({"paths": {"in_root": str(tree / "fused"),
+                                   "out_root": str(vis)},
+                         "mode": "fused", "layout": "mhr70", "fps": 30.0,
+                         "stride": TOOLS_VIS_STRIDE})
+        counts = {p.name: probe_video(p).frame_count
+                  for p in sorted(vis.rglob("*_3d.mp4"))}
+        done("vis_3d_kpt", t0, videos=json.dumps(counts).replace(" ", ""))
+        want = {f"p{i + 1:02d}_smoothed_3d.mp4": TOOLS_T // TOOLS_VIS_STRIDE
+                for i in range(TOOLS_PERSONS)}
+        if counts != want:
+            fail(f"tools: vis_3d_kpt wrote {counts}, wanted {want}")
+    else:
+        say("tools", step="vis_3d_kpt", run=False,
+            reason="matplotlib_not_installed")
+
+    # camera_calibration on the 1080p chessboard video
+    calib = tmp / "tools_calib"
+    t0 = step()
+    try:
+        camera_calibration.main({"paths": {"input": str(board),
+                                           "out_dir": str(calib)}})
+    except SystemExit as e:
+        fail(f"tools: camera_calibration stopped: {e}")
+    with np.load(calib / "calibration_parameters.npz") as z:
+        K_est, rms = z["K"], float(z["rms"])
+    views = len((calib / "reprojection_errors.csv").read_text()
+                .splitlines()) - 1
+    focal_err = float(max(abs(K_est[0, 0] / K_true[0, 0] - 1),
+                          abs(K_est[1, 1] / K_true[1, 1] - 1)))
+    done("camera_calibration", t0, frames=CALIB_VIEWS * CALIB_STRIDE,
+         views_kept=views, rms_px=rms, focal_rel_err=focal_err,
+         fx=float(K_est[0, 0]), fy=float(K_est[1, 1]),
+         cx=float(K_est[0, 2]), cy=float(K_est[1, 2]))
+    if views < 3 or not rms < 1.0:
+        fail(f"tools: camera_calibration kept {views} views at rms {rms}")
+
+    # the launcher: two processes on the card, fuse over 4 persons
+    shard = tmp / "tools_shard"
+    persons = write_fuse_persons(shard, 4, 300, 277)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = step()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "skix_torch.utils.launch", "fuse",
+         f"--shard-root={shard}", f"paths.in_root={shard}",
+         f"paths.out_root={tmp / 'tools_fused' / f'proc{r}'}"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT),
+                 SKIX_COORDINATOR=f"localhost:{port}", SKIX_NUM_PROCESSES="2",
+                 SKIX_PROCESS_ID=str(r))) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    shares, ok = {}, all(p.returncode == 0 for p in procs)
+    for r in range(2):
+        summ = tmp / "tools_fused" / f"proc{r}" / "fuse_summary.json"
+        got = json.loads(summ.read_text()) if summ.exists() else {}
+        shares[r] = sorted(got)
+        dirs = sorted(d.name for d in summ.parent.iterdir() if d.is_dir()
+                      ) if summ.exists() else []
+        ok &= (shares[r] == dirs == shard_work(persons, r, 2)
+               and all(v.get("frames") == 300 for v in got.values()))
+    done("launch", t0, processes=2,
+         shares=json.dumps(shares).replace(" ", ""),
+         rcs=json.dumps([p.returncode for p in procs]))
+    if not ok:
+        fail("tools: the launcher's processes did not each write exactly "
+             f"their share: {shares}\n" + "\n".join(
+                 log[-2000:] for log in logs))
+    launches = dict(A.LAUNCHES)
+    say("tools", step="total", ms=round(sum(times.values()), 1),
+        launches=json.dumps(launches).replace(" ", ""))
+    if any(launches.values()):
+        fail(f"tools: kernels launched {launches}; none expected")
+    return launches, {}
+
+
 GROUPS = ("kernels", "vggt", "front", "chain", "side", "vggt_cli", "prep",
-          "views", "image_edit", "train", "train_cli")
+          "views", "image_edit", "train", "train_cli", "tools")
 
 
 def main() -> int:
     # ``--only a,b``: a partial run of these phase groups (GROUPS; "train"
-    # needs "front", whose sam3 checkpoints it starts from; "train_cli"
-    # needs none) after the build,
+    # needs "front", whose sam3 checkpoints it starts from; "train_cli" and
+    # "tools" need none) after the build,
     # with no kernels line and no verdict. Without arguments every group
     # runs, as the verdict needs.
     only = None
@@ -5634,6 +6272,11 @@ def main() -> int:
             paths["lifter_train"] = lifter_train_phase(tmp)
             pose_train_reference_phase(tmp)
             paths["pose_train"] = pose_train_phase(tmp)
+        if want("tools"):
+            # 9d. the post-run tools: card against CPU on seeded inputs;
+            # then each at the size users run it
+            tools_reference_phase(tmp)
+            paths["tools"] = tools_phase(tmp)
 
     if only is not None:
         say("only", groups=",".join(sorted(only)),

@@ -16,10 +16,21 @@ import torch
 
 import jax.numpy as jnp
 
+from _torch_parity import jit0
+
 from skix.ops.attention import flash_attention as skix_flash_attention
+from skix.ops.attention import flash_attention_with_lse as skix_with_lse
 from skix.ops.attention import rope_2d_tables as skix_rope_tables
 from skix.ops.attention import rotate_half_matrix as skix_rotate_half_matrix
 from skix_torch.ops import attention as A
+
+# skix's kernels through the interpreter, each signature compiled once
+# (_CHEAP): run op by op, the interpreter's grid loop costs ~2x more
+_BLOCKS = ("block_q", "block_k_major", "block_k", "interpret")
+_skix_kernel = jit0(skix_flash_attention, static_argnames=_BLOCKS + (
+    "fixed_max",))
+_skix_kernel_lse = jit0(skix_with_lse, static_argnames=_BLOCKS + (
+    "sm_scale",))
 
 CASES = [
     # (B, H, Sq, Sk, D, block_q, block_k_major, block_k) — tests/test_ops.py
@@ -54,7 +65,7 @@ def _inputs(case, seed, layer_norm=False):
 
 def _skix(q, k, v, case, **kw):
     bq, bkm, bk = case[5:]
-    return np.asarray(skix_flash_attention(
+    return np.asarray(_skix_kernel(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=bq,
         block_k_major=bkm, block_k=bk, interpret=True, **kw), np.float32)
 
@@ -207,17 +218,15 @@ def test_plain_lse_matches_skix_kernel(case, shared_q):
     skix's K1 run with residuals through the interpreter, sm_scale 1 as the
     memory tracker calls it; ``shared_q``: one q for every batch row, the
     tracker's first layer (batch stride 0)."""
-    from skix.ops.attention import flash_attention_with_lse as skix_with_lse
-
     B, H, Sq, Sk, D, bq, bkm, bk = case
     q, k, v = _inputs(case, 17)
     q = q * 0.25
     if shared_q:
         q = np.broadcast_to(q[:1], q.shape)
-    want_o, want_l = skix_with_lse(jnp.asarray(q), jnp.asarray(k),
-                                   jnp.asarray(v), sm_scale=1.0, block_q=bq,
-                                   block_k_major=bkm, block_k=bk,
-                                   interpret=True)
+    want_o, want_l = _skix_kernel_lse(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), sm_scale=1.0,
+                                      block_q=bq, block_k_major=bkm,
+                                      block_k=bk, interpret=True)
     tq = torch.as_tensor(np.array(q[:1])).expand(q.shape) if shared_q else \
         torch.as_tensor(np.array(q))
     got_o, got_l = A.flash_attention_with_lse(tq, torch.as_tensor(k),

@@ -59,6 +59,16 @@ def test_triangulation_cli_twin(tmp_path, monkeypatch):
     from skix_torch.pipelines.triangulation import main as port_main
 
     monkeypatch.setattr(epipolar, "ransac_samples", skix_ransac_samples)
+    # skix's stage caches its two programs on the functions; this test's
+    # copies compile at XLA's level 0 and leave with it
+    from skix.pipelines import triangulation as stri
+
+    for fn, core, static in (
+            (stri._vmapped_pose, stri._vmapped_pose_core, (5,)),
+            (stri.triangulate_and_triage, stri._triage_core, (8, 9, 10))):
+        monkeypatch.setattr(fn, "_jit", jax.jit(
+            core, static_argnums=static, compiler_options=_CHEAP),
+            raising=False)
     rng = np.random.default_rng(7)
     T = 12
     K = default_K()

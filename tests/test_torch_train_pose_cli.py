@@ -6,13 +6,17 @@ a COCO keypoints fixture with augmentation: ``yolo_pose_000002.npz``
 of them within lr/10; BatchNorm statistics within 1e-3 of their scale) and
 ``final_eval.txt`` (1e-3 relative). Nothing of the computation is patched:
 skix's ``build_train_step`` is compiled at XLA's optimization level 0
-(``_torch_parity.jit0``) in place of its ``jax.jit``.
+(``_torch_parity.jit0``) in place of its ``jax.jit``, and so are the final
+evaluation's forward (``jitapply.apply_model``) and decode (``detect``,
+else run op by op).
 """
 
 import numpy as np
 import pytest
 
-from _torch_parity import jit0, port_variables
+import jax
+
+from _torch_parity import _CHEAP, jit0, port_variables
 
 SIZE = 64
 
@@ -28,7 +32,9 @@ def coco(tmp_path_factory):
 
 def test_cli_twin_matches_skix(coco, tmp_path, monkeypatch):
     from skix.config import load_config as skix_load_config
+    from skix.models import yolo_pose as syolo
     from skix.pipelines import train_pose as skix_cli
+    from skix.utils import jitapply
     from skix.pipelines.videopose3d import save_checkpoint as skix_save
     from skix_torch.pipelines import train_pose as port_cli
 
@@ -53,6 +59,14 @@ def test_cli_twin_matches_skix(coco, tmp_path, monkeypatch):
     build = skix_cli.build_train_step
     monkeypatch.setattr(skix_cli, "build_train_step",
                         lambda m, o: jit0(build(m, o).__wrapped__))
+    # the final evaluation's forward and decode, compiled once (_CHEAP):
+    # skix's module-level apply at XLA's default level, detect op by op
+    monkeypatch.setattr(jitapply, "apply_model", jax.jit(
+        jitapply.apply_model.__wrapped__, static_argnums=(0, 1),
+        compiler_options=_CHEAP))
+    monkeypatch.setattr(syolo, "detect", jax.jit(
+        syolo.detect, static_argnames=("top_k", "score_threshold"),
+        compiler_options=_CHEAP))
     skix_cli.main.__wrapped__(skix_load_config("train_pose",
                                                config_dir=cdir))
     run = port_cli.main({**body, "device": "cpu", "paths": {
