@@ -30,7 +30,10 @@ Phases, one line each (the last line is the JSON verdict):
               trunk, the DINOv2 patch embed; bf16 errors count in units of
               max(1, 2|plain|), one bf16 step at any magnitude); and K1 at
               the image_edit MMDiT's joint attention (1,24,2064,128) f32
-              with the interleaved rope from its [text, image] tables;
+              with the interleaved rope from its [text, image] tables; and
+              K1 and K1-lse at head dims 8, 24 and 48, which the wrappers
+              zero-pad to the next kernel width (the tracker fixtures'
+              memory attention at D = 24, also in bf16);
    backward   each backward kernel against its plain version: K3 + K4
               (flash_bwd_dkv, flash_bwd_dq) at the ViT-Det global and
               fusion-encoder training shapes, K5 (flash_bwd_single_tile) at
@@ -203,6 +206,20 @@ Phases, one line each (the last line is the JSON verdict):
               is not), camera_calibration on a 600-frame 1080p chessboard
               video, and the launcher's two processes running fuse over 4
               persons on the card;
+9e. vos       mask-prompted video object segmentation and the tracking
+              suite: vos_ref (the committed trained trackers of
+              tests/fixtures/tracker_tiny224.npz, head dim 24 through K1
+              padded to 32, card against CPU: propagate_object on the
+              fixture script's held-out clips, held at skix's mIoU and
+              identity floors; MaskletVideoModel with fill_holes on 3
+              clips × 12 frames, scored by evaluate_tracking_suite, skix's
+              HOTA floors printed beside; the interactive predictor forward
+              and reverse; K1-lse launches 2 a frame), then vos at full
+              width (the default tracker on the disk world at 1008 px:
+              propagate_objects 4 objects × 24 frames, warm and profiled;
+              the predictor 2 objects × 16 frames forward and reverse, no
+              launch; the hole fill; the EDT click at 1008²; the suite),
+              each step's time and peak device memory;
 10. kernels   one JSON object per kernel (and K1/K2 mode) of the paths, its
               rope styles under "modes", then one per TPU probe B1-B7 (K2's
               variants, launched on no path) with its variants' rows.
@@ -210,7 +227,8 @@ Phases, one line each (the last line is the JSON verdict):
 ``python3 chip_smoke.py --only views,prep`` runs the build and these
 phase groups alone (GROUPS), with no kernels line and no verdict;
 ``--only tools`` runs the post-run tools' phases, which make their own
-inputs.
+inputs, and ``--only vos`` the VOS phases, which read the committed
+tracker fixture and make their clips.
 
 cuDNN's TF32 is turned off in phase 4 (float32 convolutions, to compare
 card and CPU) and stays off for the phases after it; matmuls keep
@@ -879,6 +897,31 @@ def kernel_cases():
         # 24 heads of 128, f32, the interleaved rope from the joint tables
         ("flash_fwd", "mmdit_joint", (1, 24, 2064, 128), 2064, f32, None,
          "mmdit", 1e-5, False, None),
+        # head dims the kernels do not instantiate, zero-padded to the next
+        # kernel width by the wrappers: the committed fixture trackers'
+        # memory attention (48 features over 2 heads: D = 24, padded to 32;
+        # 4 objects × 3 slots of the 224 px fixture's 28² grid), also in
+        # bf16; configs/prepare_front_results.yaml's smoke tracker (16
+        # features over 2 heads: D = 8) at 4 objects × 4 slots of a 56²
+        # grid; D = 48 (padded to 64); K1 alone at the same dims
+        ("flash_fwd_lse", "tracker_fixture_d24", (4, 2, 784, 24), 2352, f32,
+         None, None, 1e-5, True, 0.125),
+        # the VOS path at full width (phase vos): the default tracker's
+        # memory attention over 4 objects' banks of 4 slots at 1008 px
+        ("flash_fwd_lse", "vos_propagate", (4, 1, 15876, 64), 63504, f32,
+         None, None, 1e-5, True, 0.125),
+        ("flash_fwd_lse", "tracker_fixture_d24_bf16", (4, 2, 784, 24), 2352,
+         bf, None, None, 4e-3, True, 0.125),
+        ("flash_fwd_lse", "smoke_tracker_d8", (4, 2, 3136, 8), 12544, f32,
+         None, None, 1e-5, True, 0.125),
+        ("flash_fwd_lse", "d48", (2, 2, 784, 48), 2352, f32, None, None,
+         1e-5, True, 0.125),
+        ("flash_fwd", "d24", (1, 2, 784, 24), 784, f32, None, None, 1e-5,
+         False, None),
+        ("flash_fwd", "d8", (2, 2, 3136, 8), 3136, f32, None, None, 1e-5,
+         False, None),
+        ("flash_fwd", "d48_bf16", (2, 4, 1000, 48), 1000, bf, None, None,
+         4e-3, False, None),
     ]
 
 
@@ -6098,14 +6141,409 @@ def tools_phase(tmp: Path):
     return launches, {}
 
 
+# --------------------------------------------------------------------------
+# phase 9e: mask-prompted video object segmentation and the tracking suite
+# --------------------------------------------------------------------------
+# vos_ref: the committed trained trackers (tests/fixtures/tracker_tiny224.npz:
+# Sam3Detector.tiny at 224 px and a MaskMemoryTracker of 48 features over 2
+# heads, head dim 24, which K1 runs padded to 32) on the card against the
+# CPU, on scripts/make_tracker_fixture.py's clips: eval_tracker's held-out
+# propagation (4 clips from seed 31 000, 2 objects, 6 frames) held at skix's
+# floors (tests/test_tracker_fixture224.py:107-108); the masklet at that
+# test's config with fill_holes on seeds 5000-5002 × 12 frames, scored by
+# evaluate_tracking_suite with masks (skix's HOTA floors, :133-135, printed
+# beside, not held); the interactive predictor on one 12-frame clip
+VOS_FIXTURE = ROOT / "tests" / "fixtures" / "tracker_tiny224.npz"
+VOS_PROP_SEED, VOS_PROP_CLIPS, VOS_PROP_T = 31_000, 4, 6
+VOS_PROP_FLOORS = {"miou": 0.6, "identity": 0.9}
+VOS_MASKLET_SEEDS, VOS_MASKLET_T = (5000, 5001, 5002), 12
+VOS_MASKLET_CFG = dict(max_objects=4, max_dets=6,
+                       score_threshold_detection=0.25, new_det_thresh=0.45,
+                       det_nms_thresh=0.6, assoc_iou_thresh=0.2,
+                       trk_assoc_iou_thresh=0.2, hotstart_delay=1000,
+                       hotstart_unmatch_thresh=4, hotstart_dup_thresh=2)
+VOS_HOTA_FLOORS = {"HOTA": 0.53, "DetA": 0.35, "AssA_alpha0": 0.85}
+# vos_ref's limits, card against CPU: logits relative to their scale, the
+# share of mask pixels that differ, masklet (frame, slot) ids that differ,
+# and |card − CPU| of each suite metric
+VOS_REF_LIMITS = {"logits": 1e-4, "mask_pixels": 1e-3, "ids": 0,
+                  "metrics": 1e-2}
+# vos: the front stage's tracker at its defaults (MaskMemoryTracker(): 64
+# features, 1 head, 4 memory slots, the conv trunk; seeded weights) on the
+# disk world at 1008 px (a 126 × 126 grid): propagate_objects with 4 objects
+# × 24 frames (K1-lse at (4, 1, 15876, 64) × 63504, 2 a frame); the
+# predictor (2 conditioning frames, 2 recent) on 2 objects × 16 frames,
+# forward then reverse (the slot scan: no launch); the hole fill (area 16)
+# on the 4 × 24 grid masks; get_next_point("center") (the EDT) on 4 masks
+# at 1008²; evaluate_tracking_suite over the 4 × 24 outputs
+VOS_HW, VOS_OBJECTS, VOS_T = 1008, 4, 24
+VOS_PRED_OBJECTS, VOS_PRED_T = 2, 16
+
+
+def tracker_world():
+    """scripts/make_tracker_fixture.py as a module (its world and clips are
+    numpy; the functions that import JAX are not called)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_tracker_fixture", ROOT / "scripts" / "make_tracker_fixture.py")
+    mtf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mtf)
+    return mtf
+
+
+def _masklet_tracks(outs):
+    """Per-frame (boxes xyxy px, ids, spawn scores, masks) of the active,
+    non-empty slots of a masklet stream (the fixture test's reading)."""
+    import numpy as np
+    import torch
+
+    from skix_torch.ops.masks import masks_to_boxes
+
+    pb, pi, ps, pm = [], [], [], []
+    for o in outs:
+        out = o["outputs"]
+        keep = out["active"] & out["mask"].reshape(
+            len(out["mask"]), -1).any(1)
+        pb.append(masks_to_boxes(torch.as_tensor(out["mask"][keep])).numpy())
+        pi.append(np.asarray(out["obj_id"])[keep])
+        ps.append(np.asarray(out["score"])[keep])
+        pm.append(out["mask"][keep])
+    return pb, pi, ps, pm
+
+
+def _gt_tracks(masks, valid):
+    """Per-frame (boxes, ids, masks) of the visible ground-truth objects."""
+    import numpy as np
+    import torch
+
+    from skix_torch.ops.masks import masks_to_boxes
+
+    gb, gi, gm = [], [], []
+    for t in range(len(masks)):
+        keep = valid[t] & masks[t].reshape(len(masks[t]), -1).any(1)
+        gb.append(masks_to_boxes(torch.as_tensor(masks[t][keep])).numpy())
+        gi.append(np.where(keep)[0])
+        gm.append(masks[t][keep])
+    return gb, gi, gm
+
+
+def vos_reference_phase():
+    """The trained fixture trackers on the card against the CPU: propagation
+    (held at skix's floors), the masklet with fill_holes and the suite, the
+    interactive predictor; K1-lse launches counted on the card."""
+    import numpy as np
+    import torch
+
+    from skix_torch.metrics.suite import evaluate_tracking_suite
+    from skix_torch.ops import attention as A
+    from skix_torch.tracking.fixture import fixture_prompt, load_tracker_fixture
+    from skix_torch.tracking.masklet import MaskletConfig, MaskletVideoModel
+    from skix_torch.tracking.memory_tracker import (propagate_object,
+                                                    propagate_objects)
+    from skix_torch.tracking.vos_predictor import InteractiveVideoPredictor
+
+    # float32 convolutions on both sides (as phase 4 sets them in a full
+    # run; this group may run alone: --only vos)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mtf = tracker_world()
+    mtf.set_world_size(224)
+    models = {d: load_tracker_fixture(VOS_FIXTURE, device=d)
+              for d in ("cpu", "cuda")}
+    bad, errs, px = [], {}, []
+
+    def compare(part, card, cpu):
+        errs.setdefault(part, []).append(scaled_err(card, cpu))
+        px.append(float(np.mean((np.asarray(card) > 0)
+                                != (np.asarray(cpu) > 0))))
+
+    # 1. propagation on eval_tracker's held-out clips
+    gh = mtf.H // 8
+    ious, correct = [], []
+    for s in range(VOS_PROP_CLIPS):
+        fr, _, mk, _ = mtf.synth_clip(VOS_PROP_SEED + s, T=VOS_PROP_T,
+                                      n_obj=2, min_sep=1.5)
+        for k in (0, 1):
+            lg = {}
+            for d in ("cpu", "cuda"):
+                reset_counts()
+                lg[d], _ = propagate_object(models[d][1], fr, mk[0, k])
+                if d == "cuda" and dict(A.LAUNCHES) != {
+                        "flash_fwd_lse": 2 * VOS_PROP_T}:
+                    bad.append(f"propagate_object launched "
+                               f"{dict(A.LAUNCHES)}")
+            compare("propagate_object", lg["cuda"], lg["cpu"])
+            for t in range(1, VOS_PROP_T):
+                pred = lg["cuda"][t] > 0
+
+                def iou(g):
+                    g = mtf.jax_resize(g, gh, gh)
+                    return (pred & g).sum() / max((pred | g).sum(), 1)
+                ious.append(iou(mk[t, k]))
+                correct.append(iou(mk[t, k]) > iou(mk[t, 1 - k]))
+    miou, identity = float(np.mean(ious)), float(np.mean(correct))
+    if not (miou > VOS_PROP_FLOORS["miou"]
+            and identity > VOS_PROP_FLOORS["identity"]):
+        bad.append(f"propagation mIoU {miou}, identity {identity} under "
+                   f"skix's floors {VOS_PROP_FLOORS}")
+    # both objects of the last clip as one batch of banks
+    lg = {}
+    for d in ("cpu", "cuda"):
+        reset_counts()
+        lg[d], _ = propagate_objects(models[d][1], fr, mk[0, :2])
+    batched = dict(A.LAUNCHES_BY_SHAPE)
+    if batched != {"flash_fwd_lse/2x2x784x32": 2 * VOS_PROP_T}:
+        bad.append(f"propagate_objects launched {batched}")
+    compare("propagate_objects", lg["cuda"], lg["cpu"])
+    say("vos_ref_propagation", miou=round(miou, 4),
+        identity=round(identity, 4), floors=json.dumps(
+            VOS_PROP_FLOORS).replace(" ", ""),
+        k1_lse_per_frame=2, batched=json.dumps(batched).replace(" ", ""))
+
+    # 2. the masklet with fill_holes, scored by the suite
+    cfg = MaskletConfig(**VOS_MASKLET_CFG)
+    tracks, ids_differ, slots = {}, 0, 0
+    per_frame = {}
+    for d in ("cpu", "cuda"):
+        det, trk = models[d]
+        mdl = MaskletVideoModel(det, trk, cfg, fill_holes=True)
+        prompt = fixture_prompt(device=d)
+        pb, pi, ps, pm, gb, gi, gm, streams = [], [], [], [], [], [], [], []
+        reset_counts()
+        for seed in VOS_MASKLET_SEEDS:
+            frames, _, masks, valid = mtf.synth_clip(seed, T=VOS_MASKLET_T,
+                                                     n_obj=2)
+            outs = list(mdl.propagate((frames * 255).astype(np.uint8),
+                                      prompt))
+            streams.append(outs)
+            b, i, sc, m = _masklet_tracks(outs)
+            g, gid, g_m = _gt_tracks(masks, valid)
+            pb += b
+            pi += [x + 100 * seed for x in i]
+            ps += sc
+            pm += m
+            gb += g
+            gi += [x + 100 * seed for x in gid]
+            gm += g_m
+        if d == "cuda":
+            n = len(VOS_MASKLET_SEEDS) * VOS_MASKLET_T
+            per_frame = {k: v / n for k, v in A.LAUNCHES.items()}
+            if per_frame.get("flash_fwd_lse") != 2:
+                bad.append(f"masklet launched {dict(A.LAUNCHES)}")
+        tracks[d] = (streams, evaluate_tracking_suite(
+            pb, pi, ps, gb, gi, pred_masks=pm, gt_masks=gm))
+    for so_cpu, so_card in zip(tracks["cpu"][0], tracks["cuda"][0]):
+        for a, b in zip(so_cpu, so_card):
+            oa, ob = a["outputs"], b["outputs"]
+            slots += oa["obj_id"].size
+            ids_differ += int((oa["obj_id"] != ob["obj_id"]).sum()
+                              + (oa["active"] != ob["active"]).sum())
+            compare("masklet", ob["mask_logits_lowres"],
+                    oa["mask_logits_lowres"])
+            px.append(float((oa["mask"] != ob["mask"]).mean()))
+    keys = ("HOTA", "DetA", "AssA", "MOTA", "TETA", "cgF1", "mask_AP")
+    suite = {d: {k: tracks[d][1][k] for k in keys} for d in tracks}
+    metric_diff = max(abs(suite["cuda"][k] - suite["cpu"][k]) for k in keys)
+    if ids_differ > VOS_REF_LIMITS["ids"]:
+        bad.append(f"masklet ids/active differ on {ids_differ} of {slots} "
+                   f"(frame, slot) entries")
+    if not metric_diff <= VOS_REF_LIMITS["metrics"]:
+        bad.append(f"suite metrics differ by {metric_diff}")
+    say("vos_ref_masklet", fill_holes=True, frames=n,
+        launches_per_frame=json.dumps(per_frame).replace(" ", ""),
+        card=json.dumps({k: round(v, 6) for k, v in suite["cuda"].items()}
+                        ).replace(" ", ""),
+        cpu=json.dumps({k: round(v, 6) for k, v in suite["cpu"].items()}
+                       ).replace(" ", ""),
+        skix_floors_not_held=json.dumps(VOS_HOTA_FLOORS).replace(" ", ""),
+        ids_differ=ids_differ, metric_max_diff=metric_diff)
+
+    # 3. the interactive predictor: two masks at frame 0, forward; a second
+    # mask of object 1 at frame 6, reverse
+    fr, _, mk, _ = mtf.synth_clip(VOS_PROP_SEED, T=12, n_obj=2, min_sep=1.5)
+    u8 = (fr * 255).astype(np.uint8)
+    runs, chosen = {}, {}
+    for d in ("cpu", "cuda"):
+        pred = InteractiveVideoPredictor(models[d][1])
+        st = pred.init_state(u8)
+        reset_counts()
+        for obj in (1, 2):
+            pred.add_new_mask(st, 0, obj, mk[0, obj - 1])
+        outs = list(pred.propagate_in_video(st))
+        pred.add_new_mask(st, 6, 1, mk[6, 0])
+        outs += list(pred.propagate_in_video(st, reverse=True))
+        runs[d], chosen[d] = outs, st["last_cond_selected"]
+        if d == "cuda" and sum(A.LAUNCHES.values()):
+            bad.append(f"the predictor's slot scan launched "
+                       f"{dict(A.LAUNCHES)}")
+    for a, b in zip(runs["cpu"], runs["cuda"]):
+        if a["obj_ids"] != b["obj_ids"] or a["frame_index"] != b[
+                "frame_index"]:
+            bad.append("the predictor's frames or ids differ")
+        compare("predictor", b["logits"], a["logits"])
+        px.append(float((a["masks"] != b["masks"]).mean()))
+    if chosen["cpu"] != chosen["cuda"]:
+        bad.append(f"conditioning frames differ: {chosen}")
+    worst_by = {k: max(v) for k, v in errs.items()}
+    worst, worst_px = max(worst_by.values()), max(px)
+    if not worst <= VOS_REF_LIMITS["logits"]:
+        bad.append(f"logits {worst} of scale apart")
+    if not worst_px <= VOS_REF_LIMITS["mask_pixels"]:
+        bad.append(f"{worst_px} of mask pixels differ")
+    say("vos_ref", frames_predicted=len(runs["cuda"]),
+        logits_max_scaled_err=worst, by_part=json.dumps(worst_by).replace(
+            " ", ""), mask_pixels_differ=worst_px,
+        limits=json.dumps(VOS_REF_LIMITS).replace(" ", ""),
+        s=round(time.perf_counter() - t0, 1))
+    if bad:
+        fail("vos_ref: " + "; ".join(bad))
+
+
+def vos_phase():
+    """The VOS path at full width, each step's time and peak device memory,
+    propagate_objects warm and once profiled (device time by kernel from the
+    raw records, the idle share); returns propagate_objects' launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from skix_torch.metrics.suite import evaluate_tracking_suite
+    from skix_torch.ops import attention as A
+    from skix_torch.ops.masks import fill_holes_in_mask_scores, masks_to_boxes
+    from skix_torch.tracking.memory_tracker import (MaskMemoryTracker,
+                                                    propagate_objects)
+    from skix_torch.tracking.point_sampling import get_next_point
+    from skix_torch.tracking.vos_predictor import InteractiveVideoPredictor
+    from skix_torch.utils.image import resize
+
+    t0 = time.perf_counter()
+    mtf = tracker_world()
+    mtf.set_world_size(VOS_HW)
+    mtf.MAXG = VOS_OBJECTS              # the world's ground-truth slots
+    frames, _, masks, valid = mtf.synth_clip(41_000, T=VOS_T,
+                                             n_obj=VOS_OBJECTS, min_sep=1.5)
+    synth_s = time.perf_counter() - t0
+    trk = MaskMemoryTracker().init_weights(
+        torch.Generator().manual_seed(0)).to("cuda").eval()
+    dev = torch.device("cuda")
+    first = masks[0, :VOS_OBJECTS]
+    propagate_objects(trk, frames[:2], first)          # warm-up
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, (time.perf_counter() - t) * 1e3,
+                (torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+
+    # propagate_objects: 4 objects × 24 frames
+    reset_counts()
+    (logits, scores), prop_ms, prop_mib = timed(
+        lambda: propagate_objects(trk, frames, first))
+    launches = dict(A.LAUNCHES), dict(A.LAUNCHES_BY_STYLE)
+    shapes = dict(A.LAUNCHES_BY_SHAPE)
+    want = {f"flash_fwd_lse/{VOS_OBJECTS}x1x{(VOS_HW // 8) ** 2}x64":
+            2 * VOS_T}
+    if shapes != want:
+        fail(f"vos: propagate_objects launched {shapes}, not {want}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        propagate_objects(trk, frames, first)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t) * 1e3
+    kernels = device_kernels(prof)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    k1 = sum(e.self_device_time_total for e in kernels
+             if "flash_fwd_kernel" in e.key) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    say("vos_propagate", objects=VOS_OBJECTS, frames=VOS_T,
+        grid=VOS_HW // 8, ms_per_frame=round(prop_ms / VOS_T, 3),
+        peak_mib=round(prop_mib, 1),
+        launches=json.dumps(shapes).replace(" ", ""),
+        profiled_ms_per_frame=round(prof_ms / VOS_T, 3),
+        device_busy_ms=round(busy, 2),
+        device_idle_share=round(1.0 - busy / prof_ms, 4),
+        k1_lse_ms=round(k1, 2), k1_lse_share_of_busy=round(k1 / busy, 4),
+        top=json.dumps([[e.key[:50], round(e.self_device_time_total / 1e3,
+                                           2), e.count] for e in top]
+                       ).replace(" ", ""))
+
+    # the interactive predictor: 2 objects × 16 frames, forward, then a mask
+    # of object 1 on the last frame and the reverse pass
+    u8 = (frames[:VOS_PRED_T] * 255).astype(np.uint8)
+    pred = InteractiveVideoPredictor(trk, max_cond_frames=2, num_recent=2)
+
+    def run_predictor():
+        st = pred.init_state(u8)
+        for obj in range(VOS_PRED_OBJECTS):
+            pred.add_new_mask(st, 0, obj, masks[0, obj])
+        n = len(list(pred.propagate_in_video(st)))
+        pred.add_new_mask(st, VOS_PRED_T - 1, 0, masks[VOS_PRED_T - 1, 0])
+        return n + len(list(pred.propagate_in_video(st, reverse=True)))
+    reset_counts()
+    n_pred, pred_ms, pred_mib = timed(run_predictor)
+    if sum(A.LAUNCHES.values()):
+        fail(f"vos: the predictor's slot scan launched {dict(A.LAUNCHES)}")
+    say("vos_predictor", objects=VOS_PRED_OBJECTS, frames=n_pred,
+        ms_per_frame=round(pred_ms / n_pred, 3), peak_mib=round(pred_mib, 1),
+        launches=0)
+
+    # the hole fill on the 4 × 24 grid masks
+    grid = torch.as_tensor(logits, device=dev).reshape(
+        -1, *logits.shape[-2:])
+    filled, fill_ms, fill_mib = timed(
+        lambda: fill_holes_in_mask_scores(grid, 16))
+    changed = int((filled != grid).sum())
+    # the EDT click on 4 masks at 1008²
+    gt = torch.as_tensor(masks[-1, :VOS_OBJECTS], device=dev)[:, None]
+    up = resize(torch.as_tensor(logits[-1], device=dev),
+                (VOS_OBJECTS, VOS_HW, VOS_HW), "bilinear")[:, None] > 0
+    (pts, labels), edt_ms, edt_mib = timed(
+        lambda: get_next_point(gt, up, "center"))
+    # the suite over the 4 × 24 outputs against the world's ground truth
+    t = time.perf_counter()
+    pb, pi, ps, pm = [], [], [], []
+    sig = 1 / (1 + np.exp(-scores))
+    for f in range(VOS_T):
+        m = resize(torch.as_tensor(logits[f], device=dev),
+                   (VOS_OBJECTS, VOS_HW, VOS_HW), "bilinear") > 0
+        keep = m.reshape(VOS_OBJECTS, -1).any(1).cpu().numpy()
+        pb.append(masks_to_boxes(m).cpu().numpy()[keep])
+        pm.append(m.cpu().numpy()[keep])
+        pi.append(np.arange(VOS_OBJECTS)[keep])
+        ps.append(sig[f][keep])
+    gb, gi, gm = _gt_tracks(masks, valid)
+    suite = evaluate_tracking_suite(pb, pi, ps, gb, gi, pred_masks=pm,
+                                    gt_masks=gm)
+    suite_ms = (time.perf_counter() - t) * 1e3
+    if not all(np.isfinite(v) for k, v in suite.items() if k != "mask_AP"):
+        fail(f"vos: non-finite suite metrics {suite}")
+    say("vos_tools", fill_holes_ms=round(fill_ms, 3),
+        fill_holes_peak_mib=round(fill_mib, 1), fill_changed_px=changed,
+        edt_center_ms=round(edt_ms, 3), edt_peak_mib=round(edt_mib, 1),
+        edt_points=json.dumps(pts[:, 0].tolist()).replace(" ", ""),
+        suite_ms=round(suite_ms, 1), suite=json.dumps(
+            {k: round(float(v), 4) for k, v in suite.items()}).replace(
+            " ", ""), synth_s=round(synth_s, 1),
+        s=round(time.perf_counter() - t0, 1))
+    return launches
+
+
 GROUPS = ("kernels", "vggt", "front", "chain", "side", "vggt_cli", "prep",
-          "views", "image_edit", "train", "train_cli", "tools")
+          "views", "image_edit", "train", "train_cli", "tools",
+          "vos")
 
 
 def main() -> int:
     # ``--only a,b``: a partial run of these phase groups (GROUPS; "train"
-    # needs "front", whose sam3 checkpoints it starts from; "train_cli" and
-    # "tools" need none) after the build,
+    # needs "front", whose sam3 checkpoints it starts from; "train_cli",
+    # "tools" and "vos" need none) after the build,
     # with no kernels line and no verdict. Without arguments every group
     # runs, as the verdict needs.
     only = None
@@ -6277,6 +6715,11 @@ def main() -> int:
             # then each at the size users run it
             tools_reference_phase(tmp)
             paths["tools"] = tools_phase(tmp)
+        if want("vos"):
+            # 9e. mask-prompted VOS and the tracking suite: the trained
+            # fixture trackers card against CPU; then at full width
+            vos_reference_phase()
+            paths["vos"] = vos_phase()
 
     if only is not None:
         say("only", groups=",".join(sorted(only)),

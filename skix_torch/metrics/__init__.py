@@ -1,2 +1,3 @@
-"""Evaluation metrics: pose errors and sequence reports (torch), detection
-evaluation (a numpy copy of skix's)."""
+"""Evaluation metrics: pose errors and sequence reports (torch); detection
+and tracking evaluation (numpy copies of skix's: AP, MOTA, HOTA, TETA,
+cgF1, video instance AP and the suite that combines them)."""

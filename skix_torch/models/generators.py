@@ -1,15 +1,17 @@
-"""Training batches for the temporal lifter.
+"""Training and evaluation batches for the temporal lifter.
 
-A numpy copy of ``skix/models/generators.py``'s ``ChunkedGenerator`` (the
-reference VideoPose3D ``common/generators.py:11``): receptive-field-padded
+A numpy copy of ``skix/models/generators.py``: ``ChunkedGenerator`` (the
+reference VideoPose3D ``common/generators.py:11``), receptive-field-padded
 2D windows and their 3D target chunks, shuffled, with 50 % horizontal-flip
-augmentation. The same seed gives the same batches as skix's, and
-``rng_state`` saves and restores the shuffle for a resumed run.
+augmentation (the same seed gives the same batches as skix's, and
+``rng_state`` saves and restores the shuffle for a resumed run); and
+``UnchunkedGenerator``, whole sequences edge-padded by half the receptive
+field for evaluation.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -87,3 +89,24 @@ class ChunkedGenerator:
                 xs.append(x)
                 ys.append(y)
             yield np.stack(xs), np.stack(ys)
+
+
+class UnchunkedGenerator:
+    """Full-sequence eval batches: yields per-clip ``(padded_2d (1, T + rf
+    − 1, J, 2), poses_3d (T, J, 3) or None)``, the 2D sequence edge-padded
+    by ``receptive_field // 2`` frames at each end (reference
+    generators.py:168)."""
+
+    def __init__(self, poses_2d: Sequence[np.ndarray],
+                 poses_3d: Optional[Sequence[np.ndarray]],
+                 receptive_field: int):
+        self.poses_2d = [np.asarray(p, np.float32) for p in poses_2d]
+        self.poses_3d = (None if poses_3d is None
+                         else [np.asarray(p, np.float32) for p in poses_3d])
+        self.pad = receptive_field // 2
+
+    def __iter__(self):
+        for i, p2 in enumerate(self.poses_2d):
+            x = np.pad(p2, ((self.pad, self.pad), (0, 0), (0, 0)), mode="edge")
+            y = None if self.poses_3d is None else self.poses_3d[i]
+            yield x[None], y

@@ -43,6 +43,17 @@ windows). The rope tables get no gradient (skix hard-zeros them,
 :func:`flash_attention_with_lse` launches K1 with its lse output and is
 forward-only, as in skix (``:1042-1043``).
 
+The kernels are instantiated at head dims 32, 64 and 128. Both entries take
+any other head dim D ≤ 128 without rope: they zero-pad q, k and v along D to
+the next instantiated width, run the call there and slice the output back
+to D (zero columns add nothing to q·kᵀ, v's zero columns only add output
+columns that are dropped), with ``sm_scale`` defaulting to 1/√D of the true
+D. The padding is outside the autograd Function, so autograd slices the
+gradients back as well. It runs on either device, so the CPU's plain
+versions see the card's operands. Rope at such a D raises on the card (the
+rotation pairs columns of the true D, and the rope pass runs inside the
+launch); the plain versions take it at any D, as before.
+
 On a CPU tensor the same entries run the plain versions, which repeat the
 kernels' arithmetic and roundings (not torch autograd):
 :func:`attention_single_tile_reference` at K2's dispatch and
@@ -82,6 +93,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 _LOG2E = math.log2(math.e)
 
@@ -452,7 +464,9 @@ def _check_args(q, k, v, rope_cos, rope_sin, rope_rotate="half"):
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {_KERNEL_HEAD_DIMS}")
+        raise ValueError(f"head dim {D} not in {_KERNEL_HEAD_DIMS}"
+                         + (" (rope tables are not padded)"
+                            if rope_cos is not None and D < 128 else ""))
     if k.shape != (B, H, Sk, D) or v.shape != (B, H, Sk, D):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
@@ -473,6 +487,24 @@ def _check_args(q, k, v, rope_cos, rope_sin, rope_rotate="half"):
         return (q, k, v, rope_cos, rope_sin, None if style == "half"
                 else _rotation_codes(D, style, q.device))
     return q, k, v, None, None, None
+
+
+def _padded_head_dim(D: int, rope_cos) -> int:
+    """The head dim a call runs at: the narrowest of the kernels' widths
+    that holds D, for a call without rope and D ≤ 128; else D itself (the
+    kernels then refuse what they do not take)."""
+    if rope_cos is not None or D in _KERNEL_HEAD_DIMS:
+        return D
+    return next((w for w in _KERNEL_HEAD_DIMS if D < w), D)
+
+
+def _pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x (B, H, S, D)`` zero-padded along D to ``width``; a q shared by
+    the batch rows (batch stride 0) stays shared."""
+    pad = (0, width - x.shape[-1])
+    if x.shape[0] > 1 and x.stride(0) == 0:
+        return F.pad(x[:1], pad).expand(x.shape[0], -1, -1, -1)
+    return F.pad(x, pad)
 
 
 def _aligned16(x: torch.Tensor) -> torch.Tensor:
@@ -691,15 +723,21 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
     they choose K2 (and K5 in the backward) where skix would
     (:func:`is_single_tile`) and nothing else.
 
-    A CUDA tensor goes through the Hopper kernels (head dim 32, 64 or 128,
-    float32 or bfloat16); a CPU tensor through the plain versions.
+    A CUDA tensor goes through the Hopper kernels (float32 or bfloat16;
+    head dim 32, 64 or 128, or any D ≤ 128 without rope, zero-padded to the
+    next of them); a CPU tensor through the plain versions.
     """
+    D = q.shape[-1]
     if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+        sm_scale = 1.0 / math.sqrt(D)
     single = is_single_tile(q.shape[2], k.shape[2], block_q, block_k_major,
                             block_k)
-    return _FlashAttention.apply(q, k, v, rope_cos, rope_sin, sm_scale,
-                                 fixed_max, single, _style_key(rope_rotate))
+    width = _padded_head_dim(D, rope_cos)
+    if width != D:
+        q, k, v = (_pad_head_dim(x, width) for x in (q, k, v))
+    out = _FlashAttention.apply(q, k, v, rope_cos, rope_sin, sm_scale,
+                                fixed_max, single, _style_key(rope_rotate))
+    return out if width == D else out[..., :D]
 
 
 def flash_attention_with_lse(q, k, v, sm_scale: float | None = None):
@@ -708,14 +746,21 @@ def flash_attention_with_lse(q, k, v, sm_scale: float | None = None):
     ``flash_attention_with_lse``, ``skix/ops/attention.py:1032``). A CUDA
     tensor launches K1 with its lse output; a CPU tensor runs
     :func:`attention_reference` with ``return_lse``. No gradient flows
-    through it, as in skix."""
+    through it, as in skix. Head dims as :func:`flash_attention`'s."""
+    D = q.shape[-1]
     if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+        sm_scale = 1.0 / math.sqrt(D)
+    width = _padded_head_dim(D, None)
+    if width != D:
+        q, k, v = (_pad_head_dim(x, width) for x in (q, k, v))
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
             raise RuntimeError("flash_attention_with_lse is forward-only (as "
                                "in skix); call it under torch.no_grad()")
-        return _launch("flash_fwd", q, k, v, sm_scale, None, None, None, True)
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, sm_scale, return_lse=True)
-    raise ValueError(f"no flash_attention_with_lse for device {q.device}")
+        o, lse = _launch("flash_fwd", q, k, v, sm_scale, None, None, None,
+                         True)
+    elif q.device.type == "cpu":
+        o, lse = attention_reference(q, k, v, sm_scale, return_lse=True)
+    else:
+        raise ValueError(f"no flash_attention_with_lse for device {q.device}")
+    return (o if width == D else o[..., :D]), lse

@@ -1,13 +1,15 @@
-"""Mask utilities: boxes of masks and pairwise mask IoU.
+"""Mask utilities: boxes of masks, pairwise mask IoU, and the filling of
+small holes and removal of small sprinkles in mask logits.
 
-Port of ``masks_to_boxes`` and ``mask_iou`` from ``skix/ops/masks.py``.
-``fill_holes_in_mask_scores`` (off on the front path, ``fill_holes=False``)
-comes with ``connected_components`` in a later slice.
+Port of ``skix/ops/masks.py``. skix ``vmap``s the hole filling over masks;
+here it takes a batch of masks along leading axes.
 """
 
 from __future__ import annotations
 
 import torch
+
+from skix_torch.ops.connected_components import connected_components
 
 _EPS = 1e-9
 
@@ -38,3 +40,37 @@ def mask_iou(a, b):
     area_a = a.sum(dim=1)[:, None]
     area_b = b.sum(dim=1)[None, :]
     return inter / (area_a + area_b - inter + _EPS)
+
+
+def _component_areas(mask):
+    """Per-pixel area of the 4-connected component each pixel of the bool
+    masks ``(..., H, W)`` belongs to (0 outside the masks), int32."""
+    labels = connected_components(mask)
+    H, W = labels.shape[-2:]
+    flat = labels.reshape(-1, H * W).to(torch.int64)
+    safe = flat.clamp(min=0)
+    fg = (flat >= 0).to(torch.int32)
+    hist = torch.zeros_like(fg).scatter_add_(1, safe, fg)
+    return torch.where(flat >= 0, hist.gather(1, safe),
+                       torch.zeros_like(fg)).reshape(labels.shape)
+
+
+def fill_holes_in_mask_scores(mask, max_area: int, fill_holes: bool = True,
+                              remove_sprinkles: bool = True):
+    """Fill small background holes (→ +0.1) and remove small foreground
+    sprinkles (→ −0.1) in float mask-logit maps ``(..., H, W)``, each map
+    on its own. Sprinkles are removed below ``min(max_area, foreground area
+    // 2)`` of their map, so a tiny object is never wiped (skix's rule)."""
+    if max_area <= 0:
+        return mask
+    if fill_holes:
+        bg = mask <= 0
+        small_bg = bg & (_component_areas(bg) <= max_area)
+        mask = torch.where(small_bg, torch.full_like(mask, 0.1), mask)
+    if remove_sprinkles:
+        fg = mask > 0
+        thresh = torch.clamp(fg.sum(dim=(-2, -1), dtype=torch.int32) // 2,
+                             max=max_area)
+        small_fg = fg & (_component_areas(fg) <= thresh[..., None, None])
+        mask = torch.where(small_fg, torch.full_like(mask, -0.1), mask)
+    return mask

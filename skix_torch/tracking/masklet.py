@@ -15,8 +15,10 @@ the same per-frame outputs. skix's bit-packing of the upsampled masks was
 a transfer trick of its TPU host link; the port produces the same bool
 array directly.
 
-Geometry prompts (``MaskletVideoModel.step(geometry=...)``) and
-``fill_holes`` (needs ``connected_components``) come with later slices and
+With ``fill_holes`` the detection and tracker mask logits of each frame
+pass through :func:`skix_torch.ops.masks.fill_holes_in_mask_scores` before
+the lifecycle, as in skix. Geometry prompts
+(``MaskletVideoModel.step(geometry=...)``) come with a later slice and
 raise.
 """
 
@@ -29,7 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from skix_torch.ops.masks import mask_iou, masks_to_boxes
+from skix_torch.ops.masks import (fill_holes_in_mask_scores, mask_iou,
+                                  masks_to_boxes)
 from skix_torch.tracking.memory_tracker import (MemoryBank, init_memory,
                                                 write_conditioning,
                                                 write_recent)
@@ -39,7 +42,7 @@ NO_OBJ_LOGIT = -10.0
 _NEVER_OCCLUDED = -1
 _ALWAYS_OCCLUDED = 1 << 20
 _BIG = 1 << 20
-_GEOMETRY_SLICE = "ROADMAP Queue 1 item 11 (the geometry prompts)"
+_GEOMETRY_SLICE = "ROADMAP Queue 1 item 11b (the geometry prompts)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -320,16 +323,18 @@ def _masklet_frame_core(tracker, cfg: MaskletConfig, fill_holes: bool,
                         banks: MemoryBank):
     """One frame given the detector's outputs: tracker trunk → per-slot
     memory propagation (no write) → lifecycle → memory writes."""
-    if fill_holes and cfg.fill_hole_area > 0:
-        raise NotImplementedError(
-            "fill_holes needs connected_components, which comes with "
-            "ROADMAP Queue 1 item 11")
     feats = tracker.encode_frame(image_trk)              # (1, gh, gw, C)
     gh, gw = feats.shape[1], feats.shape[2]
     trk_masks, trk_scores = tracker.attend_decode(
         feats, banks, cfg.dense_memory_attention)        # (K, gh, gw), (K,)
     det_boxes_sel, det_scores, det_masks, det_valid = _select_dets(
         det_boxes, det_score_logits, det_mask_logits, cfg, (gh, gw))
+    if fill_holes and cfg.fill_hole_area > 0:
+        det_masks = fill_holes_in_mask_scores(det_masks, cfg.fill_hole_area)
+        trk_masks = fill_holes_in_mask_scores(
+            torch.where(state.active[:, None, None], trk_masks,
+                        torch.full_like(trk_masks, NO_OBJ_LOGIT)),
+            cfg.fill_hole_area)
     new_state, out = masklet_update(state, trk_masks, det_masks, det_scores,
                                     det_valid, cfg)
     encoded = tracker.encode_memory(feats, out["mem_mask_logits"])

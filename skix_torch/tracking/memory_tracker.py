@@ -19,6 +19,12 @@ one flat key/value sequence of M·L tokens, runs K1 with its base-2 lse
 output and subtracts the closed-form softmax mass of the invalid slots,
 whose tokens all equal the LayerNorm of the zero vector. The slot scan is
 plain torch.
+
+:func:`propagate_object` and :func:`propagate_objects` track objects
+prompted by a first-frame mask through a clip (skix's streaming drivers):
+each frame is encoded once, and the objects' banks go through the dense
+memory attention as one batch, two K1 launches a frame (one a layer).
+They run on the device of the model's weights.
 """
 
 from __future__ import annotations
@@ -149,9 +155,10 @@ class MemoryEncoder(nn.Module):
         self.out_proj = Conv(features, features, 1)
 
     def forward(self, feats, mask_logits):
-        """``feats (1 or K, gh, gw, C)``, ``mask_logits (K, gh, gw)`` →
-        ``(K, gh, gw, C)``."""
-        K, gh, gw = mask_logits.shape
+        """``feats (1 or K, gh, gw, C)``, ``mask_logits (K, h, w)`` at any
+        resolution (the grid's, or a prompt's) → ``(K, gh, gw, C)``."""
+        K = mask_logits.shape[0]
+        gh, gw = feats.shape[-3], feats.shape[-2]
         m = torch.sigmoid(mask_logits)[..., None]
         m = resize(m, (K, gh * 4, gw * 4, 1), "bilinear")
         h = self.pix_feat_proj(feats) + self.mask_downsampler(m)
@@ -334,6 +341,28 @@ class MaskMemoryTracker(nn.Module):
     def encode_frame(self, image):
         return self.encoder(image)
 
+    def step(self, image, bank: MemoryBank, write: bool = True,
+             dense: bool = False):
+        """One frame ``image (1, H, W, 3)`` in [0, 1] for every object bank:
+        returns ``(mask_logits (K, gh, gw), score (K,), new bank)``.
+        ``dense=True``: the K1 memory attention (inference only)."""
+        return self.step_from_feats(self.encoder(image), bank, write, dense)
+
+    def step_dense(self, image, bank: MemoryBank, write: bool = True):
+        """:meth:`step` on the dense memory attention."""
+        return self.step_from_feats(self.encoder(image), bank, write,
+                                    dense=True)
+
+    def init_from_mask(self, image, mask, bank: MemoryBank) -> MemoryBank:
+        """Condition each object on its prompted mask ``(K, H, W)`` (bool,
+        any resolution) of frame ``image (1, H', W', 3)``: the mask as
+        logits ±10 (mask·20 − 10), encoded and pinned to the conditioning
+        slot."""
+        feats = self.encoder(image)
+        logits = torch.as_tensor(mask, device=feats.device).to(
+            torch.float32) * 20.0 - 10.0
+        return write_conditioning(bank, self.mem_encoder(feats, logits))
+
     def attend_decode(self, feats, bank: MemoryBank, dense: bool = False):
         """Memory cross-attention + mask decode without a memory write, for
         every object bank: ``feats (1, gh, gw, C)`` → ``(mask_logits (K, gh,
@@ -363,3 +392,50 @@ class MaskMemoryTracker(nn.Module):
         if write:
             bank = write_recent(bank, self.encode_memory(feats, mask_logits))
         return mask_logits, score, bank
+
+
+def _clip_on(model, frames):
+    """``frames (T, H, W, 3)`` uint8 or float (numpy or a tensor) → a
+    float32 tensor on the model's device, divided by 255 where its maximum
+    exceeds 1.5 (skix's rule)."""
+    frames = torch.as_tensor(frames).to(
+        device=next(model.parameters()).device, dtype=torch.float32)
+    if float(frames.max()) > 1.5:
+        frames = frames / 255.0
+    return frames
+
+
+@torch.no_grad()
+def propagate_object(model: MaskMemoryTracker, frames, first_mask,
+                     mem_slots: int | None = None):
+    """Track one object prompted by ``first_mask (H, W)`` bool at frame 0
+    through ``frames (T, H, W, 3)``: returns numpy ``(mask_logits (T, gh,
+    gw), scores (T,))``. Every frame, the first included, goes through
+    :meth:`MaskMemoryTracker.step_dense` and writes its memory."""
+    logits, scores = propagate_objects(model, frames,
+                                       torch.as_tensor(first_mask)[None],
+                                       mem_slots)
+    return logits[:, 0], scores[:, 0]
+
+
+@torch.no_grad()
+def propagate_objects(model: MaskMemoryTracker, frames, first_masks,
+                      mem_slots: int | None = None):
+    """Track N objects prompted by ``first_masks (N, H, W)`` bool at frame
+    0 through ``frames (T, H, W, 3)``: returns numpy ``(mask_logits (T, N,
+    gh, gw), scores (T, N))``. The frame encoder runs once a frame; the N
+    banks go through the memory attention together (skix ``vmap``s them)."""
+    frames = _clip_on(model, frames)
+    T = frames.shape[0]
+    first_masks = torch.as_tensor(first_masks, device=frames.device)
+    gh, gw = model.encoder.feature_hw(*frames.shape[1:3])
+    bank = init_memory(mem_slots or model.mem_slots, gh, gw, model.features,
+                       first_masks.shape[0], frames.device)
+    bank = model.init_from_mask(frames[:1], first_masks, bank)
+    masks, scores = [], []
+    for t in range(T):
+        m, s, bank = model.step_dense(frames[t:t + 1], bank)
+        masks.append(m)
+        scores.append(s)
+    return (torch.stack(masks).cpu().numpy(),
+            torch.stack(scores).cpu().numpy())

@@ -40,7 +40,7 @@ from skix_torch.ops.attention import flash_attention
 from skix_torch.tracking.vitdet import SimpleFPNNeck, ViTDetBackbone
 from skix_torch.utils.image import resize
 
-_GEOMETRY_SLICE = "ROADMAP Queue 1 item 11 (the geometry prompts)"
+_GEOMETRY_SLICE = "ROADMAP Queue 1 item 11b (the geometry prompts)"
 
 
 def _inverse_sigmoid(x, eps: float = 1e-5):

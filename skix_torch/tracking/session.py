@@ -109,7 +109,7 @@ class VideoPredictor:
         encoder's vector or the hash embedding."""
         if points is not None or boxes_xyxy is not None:
             raise NotImplementedError(
-                "geometric prompts come with ROADMAP Queue 1 item 11 (the "
+                "geometric prompts come with ROADMAP Queue 1 item 11b (the "
                 "geometry prompts)")
         if text is None:
             return

@@ -621,3 +621,69 @@ def test_cuda_dpt_depth_shapes_match_plain(cuda, shape):
             1 / math.sqrt(D)) for h in range(H)], 1) for b in range(B)])
     assert out.shape == shape and out.dtype == torch.float32
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 24, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_padded_head_dims_match_plain(cuda, D, dtype):
+    """Head dims the kernels do not instantiate: ``flash_attention`` and
+    ``flash_attention_with_lse`` zero-pad to the next kernel width (32 or
+    64), launch K1 there, and slice back; against the plain version at the
+    true D, with the default scale of the true D. The backward (K3 + K4
+    at the padded width) against autograd of the plain forward at D."""
+    B, H, Sq, Sk = 2, 2, 300, 700
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q = torch.randn((1, H, Sq, D), generator=g, device=cuda).to(dtype)
+    q = q.expand(B, H, Sq, D)
+    k, v = (torch.randn((B, H, Sk, D), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    bf16 = dtype == torch.bfloat16
+    before = dict(A.LAUNCHES)
+    with torch.no_grad():
+        out = A.flash_attention(q, k, v)
+        o_lse, lse = A.flash_attention_with_lse(q, k, v, 0.3)
+        torch.cuda.synchronize()
+        ref = A.attention_reference(q, k, v, 1 / math.sqrt(D))
+        ref_o, ref_lse = A.attention_reference(q, k, v, 0.3, return_lse=True)
+    assert A.LAUNCHES["flash_fwd"] == before.get("flash_fwd", 0) + 1
+    assert A.LAUNCHES["flash_fwd_lse"] == before.get("flash_fwd_lse", 0) + 1
+    assert out.shape == o_lse.shape == (B, H, Sq, D) and out.dtype == dtype
+    # bf16: one bf16 step (2⁻⁷ relative) at the largest |o|
+    for got, want in ((out, ref), (o_lse, ref_o)):
+        atol = (2 ** -7 * max(1.0, want.float().abs().max().item()) if bf16
+                else 1e-5)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3 if bf16 else 1e-5,
+                               rtol=0)
+
+    qg, kg, vg = (x.detach().clone().contiguous().requires_grad_()
+                  for x in (q, k, v))
+    do = torch.randn((B, H, Sq, D), generator=g, device=cuda).to(dtype)
+    A.flash_attention(qg, kg, vg).backward(do)
+    qr, kr, vr = (x.detach().float().requires_grad_() for x in (q, k, v))
+    torch.softmax(qr @ kr.transpose(-1, -2) / math.sqrt(D), -1).matmul(
+        vr).backward(do.float())
+    tol = 2e-2 if bf16 else 1e-5
+    for a, b in ((qg, qr), (kg, kr), (vg, vr)):
+        assert a.grad.shape == b.grad.shape and a.grad.dtype == dtype
+        torch.testing.assert_close(a.grad.float(), b.grad, rtol=0,
+                                   atol=tol * b.grad.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_rope_or_wide_head_dim_still_raises(cuda):
+    """No padding with rope (the rotation pairs columns of the true D and
+    runs inside the launch) or above 128: both raise on the card."""
+    q = torch.randn((1, 2, 64, 48), device=cuda)
+    pos = torch.as_tensor(np.resize(_positions(133), (64, 2)), device=cuda)
+    cos, sin = A.rope_2d_tables(pos, 48, 100.0)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="head dim 48"):
+            A.flash_attention(q, q, q, rope_cos=cos, rope_sin=sin)
+        wide = torch.randn((1, 2, 64, 136), device=cuda)
+        with pytest.raises(ValueError, match="head dim 136"):
+            A.flash_attention(wide, wide, wide)
+        with pytest.raises(ValueError, match="head dim 136"):
+            A.flash_attention_with_lse(wide, wide, wide)
