@@ -220,6 +220,20 @@ Phases, one line each (the last line is the JSON verdict):
               the predictor 2 objects × 16 frames forward and reverse, no
               launch; the hole fill; the EDT click at 1008²; the suite),
               each step's time and peak device memory;
+9f. prompts   point and box prompts: prompts_ref (the CPU twins' items on
+              tests/fixtures/tracker_tiny224.npz with a geometry branch
+              grafted from a seeded generator, card against CPU: the
+              samplers, the geometry encoder, the detector with text ‖
+              geometry and geometry alone, Sam3Processor's sequence, the
+              prompt encoder, the SAM decoder's selection, the image
+              predictor, the masklet session through the request protocol
+              both ways, the box session, track_masklets, the VOS
+              predictor's clicks and box), then prompts at full width
+              (Sam3Processor on the full-size detector, 4 frames of 1080p
+              × 4 prompts; the session on 16 frames of 1080p both ways;
+              the VOS predictor with the ViT-Det segmenter at 1008 px),
+              K1 and K2 launches held, times, peak memory, one profile of
+              the processor and of the session;
 10. kernels   one JSON object per kernel (and K1/K2 mode) of the paths, its
               rope styles under "modes", then one per TPU probe B1-B7 (K2's
               variants, launched on no path) with its variants' rows.
@@ -227,8 +241,9 @@ Phases, one line each (the last line is the JSON verdict):
 ``python3 chip_smoke.py --only views,prep`` runs the build and these
 phase groups alone (GROUPS), with no kernels line and no verdict;
 ``--only tools`` runs the post-run tools' phases, which make their own
-inputs, and ``--only vos`` the VOS phases, which read the committed
-tracker fixture and make their clips.
+inputs, ``--only vos`` the VOS phases, which read the committed
+tracker fixture and make their clips, and ``--only prompts`` the prompt
+phases.
 
 cuDNN's TF32 is turned off in phase 4 (float32 convolutions, to compare
 card and CPU) and stays off for the phases after it; matmuls keep
@@ -6535,15 +6550,581 @@ def vos_phase():
     return launches
 
 
+# prompts: point and box prompts. prompts_ref holds the card to the CPU on
+# the trained 224 px fixture (tests/fixtures/tracker_tiny224.npz) with a
+# geometry branch grafted from a seeded generator, at the CPU twins' items
+# (tests/test_torch_{sam_interactive,geometry_prompts,session_prompts}.py);
+# prompts runs them at full width: Sam3Processor on the full-size detector
+# (1008 px, f32, 8 point and 4 box slots) over 4 frames of 1080p with text,
+# +box, +point, +negative point; the video session (the full-size detector
+# and the default tracker) through handle_request / handle_stream_request
+# on 16 frames of 1080p, a normalized box on frame 0 and clicks on frame
+# 8, both ways from frame 8; the VOS predictor with the reference SAM
+# decoder width (256 features, 8 heads, MLP 2048, depth 2) on the ViT-Det
+# trunk (1024 × 32) at 1008 px, a box and a correction click, then 16
+# frames at 1008 px
+PROMPTS_REF_LIMITS = {"logits": 1e-4, "mask_pixels": 1e-3, "ids": 0}
+PROMPTS_HW, PROMPTS_FRAMES, PROMPTS_SESSION_T = (1080, 1920), 4, 16
+PROMPTS_VOS_HW, PROMPTS_VOS_T = 1008, 16
+PROMPTS_KEPT = 8          # the fewest queries a processor prompt keeps
+# launches of one full-size detector forward (trunk windows and global
+# blocks, fusion encoder) and of one ViT-Det segmenter encode; the session's
+# tracker adds its dense memory attention, 2 a frame
+PROMPTS_PER_FORWARD = {"flash_fwd_single_tile": 28, "flash_fwd": 4 + 6}
+PROMPTS_PER_ENCODE = {"flash_fwd_single_tile": 28, "flash_fwd": 4}
+PROMPTS_SESSION_PER_FRAME = {**PROMPTS_PER_FORWARD, "flash_fwd_lse": 2}
+
+
+def _prompt_slots(rng, B: int = 1, Np: int = 8, Nb: int = 4):
+    """Random point and box slots as the detector's keywords, some slots
+    invalid, labels −1..2 (clipped to 0/1 by the encoder)."""
+    import numpy as np
+
+    boxes = np.concatenate([rng.uniform(0.2, 0.8, (B, Nb, 2)),
+                            rng.uniform(0.1, 0.6, (B, Nb, 2))], -1)
+    return {"points": rng.random((B, Np, 2)).astype(np.float32),
+            "point_labels": rng.integers(-1, 3, (B, Np)).astype(np.int32),
+            "point_valid": rng.random((B, Np)) < 0.6,
+            "boxes": boxes.astype(np.float32),
+            "box_labels": rng.integers(0, 2, (B, Nb)).astype(np.int32),
+            "box_valid": rng.random((B, Nb)) < 0.6}
+
+
+def _selected(out):
+    """Per image, the index of the decoder's returned mask among its four."""
+    import torch
+
+    return [int(torch.nonzero((ms == s).all(-1).all(-1))[0])
+            for s, ms in zip(out.mask_logits, out.all_mask_logits)]
+
+
+def prompts_reference_phase():
+    """Every item of the CPU twins on the card against the CPU, small: the
+    samplers at the border, the geometry encoder, the fixture detector
+    with text ‖ geometry, geometry only and every slot invalid, the
+    processor's sequence, the prompt encoder and decoder (the stability
+    fallback on both sides), the image predictor, the masklet session both
+    ways through the request protocol, geometry alone, the box session,
+    track_masklets and the VOS predictor's clicks and box."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from skix_torch.ops import attention as A
+    from skix_torch.tracking import sam3_detector as SD
+    from skix_torch.tracking.fixture import (fixture_prompt,
+                                             load_tracker_fixture)
+    from skix_torch.tracking.image_processor import Sam3Processor
+    from skix_torch.tracking.masklet import MaskletConfig, track_masklets
+    from skix_torch.tracking.sam_decoder import SamMaskDecoder
+    from skix_torch.tracking.sam_prompt_encoder import (InteractiveSegmenter,
+                                                        SamImagePredictor)
+    from skix_torch.tracking.session import VideoPredictor
+    from skix_torch.tracking.vos_predictor import InteractiveVideoPredictor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mtf = tracker_world()
+    mtf.set_world_size(224)
+    det, trk = load_tracker_fixture(VOS_FIXTURE, device="cpu")
+    det.geometry_encoder = det.make_geometry_encoder(
+        torch.Generator().manual_seed(17))
+    seg = InteractiveSegmenter(features=32, img_size=224, num_heads=2)
+    seg.init_weights(torch.Generator().manual_seed(18))
+    dec = SamMaskDecoder(32, 2, mlp_dim=64, iou_hidden_dim=32, high_res=True
+                         ).init_weights(torch.Generator().manual_seed(19))
+    models = {"cpu": [m.eval() for m in (det, trk, seg, dec)]}
+    models["cuda"] = [copy.deepcopy(m).to("cuda") for m in models["cpu"]]
+    bad, errs, px = [], {}, []
+    ids_differ = sel_differ = 0
+    reset_counts()
+
+    def compare(part, card, cpu, masks=False):
+        card = card.cpu() if hasattr(card, "cpu") else card
+        cpu = cpu.cpu() if hasattr(cpu, "cpu") else cpu
+        if masks:
+            px.append(float(np.mean(np.asarray(card) != np.asarray(cpu))))
+        else:
+            errs[part] = max(errs.get(part, 0.0), scaled_err(card, cpu))
+
+    def both(fn):
+        """``fn(device, models)`` on the CPU and on the card, no grad."""
+        with torch.no_grad():
+            return [fn(d, models[d]) for d in ("cpu", "cuda")]
+
+    def t(x, d):
+        return torch.as_tensor(x, device=d)
+
+    # 1. samplers at the border, the geometry encoder, the detector
+    rng = np.random.default_rng(0)
+    feat = rng.normal(size=(6, 8, 5)).astype(np.float32)
+    pts = np.array([[0, 0], [1, 1], [0, 1], [1, 0], [1.3, -0.2],
+                    [-0.1, 1.1], [0.999, 0.001]], np.float32)
+    boxes = np.array([[0.05, 0.05, 0.2, 0.3], [0.95, 0.9, 0.3, 0.4],
+                      [0.5, 0.5, 1.2, 1.2]], np.float32)
+    for name, fn, arg in (("bilinear_sample", SD.bilinear_sample, pts),
+                          ("box_grid_sample", SD.box_grid_sample, boxes)):
+        cpu, card = both(lambda d, _: fn(t(feat, d), t(arg, d)))
+        compare(name, card, cpu)
+    slots = _prompt_slots(rng)
+    gfeat = rng.normal(size=(1, 16, 16, 64)).astype(np.float32)
+    for case in ("some_invalid", "all_invalid"):
+        if case == "all_invalid":
+            slots["point_valid"][:] = slots["box_valid"][:] = False
+        cpu, card = both(lambda d, m: m[0].geometry_encoder(
+            t(gfeat, d), *(t(v, d) for v in slots.values())))
+        compare("geometry_encoder", card[0], cpu[0])
+        if not torch.equal(card[1].cpu(), cpu[1]):
+            bad.append(f"geometry pads differ ({case})")
+    frame = mtf.synth_scene(7, n_obj=2)[0][None]
+    text = fixture_prompt(device="cpu").numpy()[None]
+    for case in ("text_geometry", "geometry_only", "all_invalid"):
+        slots = _prompt_slots(rng)
+        if case == "all_invalid":
+            slots["point_valid"][:] = slots["box_valid"][:] = False
+        cpu, card = both(lambda d, m: m[0](
+            t(frame, d), None if case == "geometry_only" else t(text, d),
+            **{k: t(v, d) for k, v in slots.items()}))
+        for field in ("boxes_cxcywh", "scores", "mask_logits", "presence"):
+            compare("detector", getattr(card, field), getattr(cpu, field))
+
+    # 2. Sam3Processor: text → box → point → negative point → threshold →
+    # reset → a box alone ("visual"); keep sets equal
+    image = (np.pad(frame[0], ((0, 0), (0, 96), (0, 0))) * 255).astype(
+        np.uint8)
+    procs = {d: Sam3Processor(models[d][0], confidence_threshold=0.3)
+             for d in ("cpu", "cuda")}
+    states = {d: p.set_image(image) for d, p in procs.items()}
+    steps = [lambda p, s: p.set_text_prompt("person", s),
+             lambda p, s: p.add_geometric_prompt([0.4, 0.5, 0.3, 0.4], True,
+                                                 s),
+             lambda p, s: p.add_point_prompt([0.3, 0.6], True, s),
+             lambda p, s: p.add_point_prompt([0.8, 0.2], False, s),
+             lambda p, s: p.set_confidence_threshold(0.35, s),
+             lambda p, s: p.add_geometric_prompt(
+                 [0.5, 0.5, 0.3, 0.3], True, p.reset_all_prompts(s))]
+    keep_differ = 0
+    for step in steps:
+        cpu, card = (step(procs[d], states[d]) for d in ("cpu", "cuda"))
+        keep_differ += int(len(cpu["scores"]) != len(card["scores"])
+                           or not np.array_equal(
+                               cpu["all_scores"] >= procs["cpu"]
+                               .confidence_threshold,
+                               card["all_scores"] >= procs["cuda"]
+                               .confidence_threshold))
+        for k in ("all_scores", "all_boxes_xyxy", "masks_lowres", "presence"):
+            compare("processor", card[k], cpu[k])
+    if keep_differ:
+        bad.append(f"the processor's keep sets differ in {keep_differ} steps")
+
+    # 3. the prompt encoder, the decoder's four cases, the image predictor
+    for case in ("multimask", "stable", "unstable", "high_res"):
+        rng = np.random.default_rng(6)
+        emb, pe = (rng.normal(size=s).astype(np.float32)
+                   for s in ((2, 8, 8, 32), (1, 8, 8, 32)))
+        prompt = rng.normal(size=(2, 3, 32)).astype(np.float32)
+        f4 = rng.normal(size=(2, 32, 32, 32)).astype(np.float32)
+        f2 = rng.normal(size=(2, 16, 16, 32)).astype(np.float32)
+
+        def run(d, m):
+            dm = copy.deepcopy(m[3])
+            if case == "stable":
+                dm.upscale2.bias.add_(6.0)
+                dm.hyper_0.fc2.bias.fill_(1.0)
+            if case == "unstable":
+                dm.hyper_0.fc2.weight.zero_()
+                dm.hyper_0.fc2.bias.zero_()
+            return dm(t(emb, d), t(pe, d), t(prompt, d), case == "multimask",
+                      (t(f4, d), t(f2, d)) if case == "high_res" else None)
+        cpu, card = both(run)
+        for field in cpu._fields:
+            compare("decoder", getattr(card, field), getattr(cpu, field))
+        sel = _selected(cpu)
+        sel_differ += int(_selected(card) != sel)
+        if (case == "stable") != (sel == [0, 0]):
+            bad.append(f"decoder case {case} selected {sel}")
+    image = (rng.random((150, 200, 3)) * 255).astype(np.uint8)
+    preds = {d: SamImagePredictor(models[d][2]) for d in ("cpu", "cuda")}
+    for p in preds.values():
+        p.set_image(image)
+    for args, kw in ((([[30, 20], [80, 40]], [1, 0]), {}),
+                     ((None, None, [10, 5, 150, 120]), {}),
+                     (([[60, 50]], [1], [10, 5, 150, 120]), {}),
+                     (([[60, 50]], [1]), {"multimask_output": False})):
+        cpu, card = (preds[d].predict(*args, **kw) for d in ("cpu", "cuda"))
+        compare("image_predictor", card[2], cpu[2])
+        compare("image_predictor", card[1], cpu[1])
+        compare("image_predictor", card[0], cpu[0], masks=True)
+
+    # 4. the masklet session through the request protocol, both ways;
+    # geometry alone; the box session; track_masklets
+    frames, gt_boxes, gt_masks, gt_valid = mtf.synth_clip(
+        20_001, T=6, n_obj=2, min_sep=1.5)
+    u8 = (frames * 255).astype(np.uint8)
+    cx, cy, w, h = gt_boxes[0, 0]
+    px1 = (gt_boxes[1, 1, :2] * 224).tolist()
+    cfg = MaskletConfig(**VOS_MASKLET_CFG)
+    streams = {}
+    for d in ("cpu", "cuda"):
+        pred = VideoPredictor(models[d][0], models[d][1], cfg,
+                              smoke_prompts=True, batch_size=2)
+        sid = pred.handle_request({"type": "start_session",
+                                   "frames": u8})["session_id"]
+        pred.handle_request({"type": "add_prompt", "session_id": sid,
+                             "text": "person", "frame_index": 0,
+                             "bounding_boxes": [[cx - w / 2, cy - h / 2, w,
+                                                 h]],
+                             "bounding_box_labels": [1]})
+        pred.handle_request({"type": "add_prompt", "session_id": sid,
+                             "frame_index": 1, "points": [px1, [5.0, 5.0]],
+                             "point_labels": [1, 0]})
+        outs = list(pred.handle_stream_request({
+            "type": "propagate_in_video", "session_id": sid,
+            "start_frame_index": 1}))
+        pred.handle_request({"type": "reset_session", "session_id": sid})
+        pred.add_prompt(sid, frame_idx=1, points=[px1])
+        outs += list(pred.handle_stream_request({
+            "type": "propagate_in_video", "session_id": sid,
+            "start_frame_index": 1, "max_frame_num_to_track": 2,
+            "propagation_direction": "forward"}))
+        boxes_pred = VideoPredictor(models[d][0], None, smoke_prompts=True,
+                                    batch_size=2)
+        sid = boxes_pred.start_session(u8[:3])
+        boxes_pred.add_prompt(sid, "person", frame_idx=1,
+                              boxes_xyxy=[[40, 40, 120, 140]])
+        streams[d] = outs, list(boxes_pred.propagate_in_video(sid))
+    for part, i in (("session", 0), ("box_session", 1)):
+        cpu_s, card_s = streams["cpu"][i], streams["cuda"][i]
+        if [o["frame_index"] for o in cpu_s] != [o["frame_index"]
+                                                 for o in card_s]:
+            bad.append(f"{part}: frames differ")
+        for a, b in zip(cpu_s, card_s):
+            oa, ob = a["outputs"], b["outputs"]
+            ids_differ += int((oa["obj_id"] != ob["obj_id"]).sum()
+                              + (oa["active"] != ob["active"]).sum())
+            for k, v in oa.items():
+                if k == "mask":
+                    compare(part, ob[k], v, masks=True)
+                elif v.dtype.kind == "f":
+                    compare(part, ob[k], v)
+    if [o["frame_index"] for o in streams["cuda"][0]] != [
+            1, 2, 3, 4, 5, 1, 0, 1, 2]:
+        bad.append("the session's frames are not [1..5, 1, 0, 1, 2]")
+    rng = np.random.default_rng(0)
+    grid = np.stack([mtf.jax_resize(m, 28, 28) for m in
+                     gt_masks[:, :2].reshape(-1, 224, 224)]).reshape(
+        6, 2, 28, 28)
+    logits = (np.where(grid, 8.0, -8.0)
+              + rng.normal(0, 2, grid.shape)).astype(np.float32)
+    scores = rng.uniform(0.5, 0.9, (6, 2)).astype(np.float32)
+    valid = gt_valid[:, :2].copy()
+    valid[2, 0] = False
+    kw = dict(VOS_MASKLET_CFG, max_dets=2, hotstart_delay=2)
+    cpu, card = (track_masklets(t(logits, d), t(scores, d), t(valid, d),
+                                MaskletConfig(**kw)) for d in ("cpu", "cuda"))
+    for k, v in cpu.items():
+        if v.is_floating_point():
+            compare("track_masklets", card[k], v)
+        elif not torch.equal(card[k].cpu(), v):
+            bad.append(f"track_masklets {k} differs")
+
+    # 5. the VOS predictor's box, correction click, relative click, a mask
+    # then a click, forward and reverse
+    calls = [
+        lambda p, s: p.add_new_points_or_box(s, 0, 1, box=[40, 48, 140,
+                                                           160]),
+        lambda p, s: p.add_new_points_or_box(s, 0, 1, points=[[80.0, 100.0]],
+                                             labels=[1],
+                                             clear_old_points=False),
+        lambda p, s: p.add_new_points_or_box(s, 0, 2, points=[[0.5, 0.25]],
+                                             labels=[1],
+                                             rel_coordinates=True),
+        lambda p, s: p.add_new_mask(s, 2, 3, gt_masks[2, 0]),
+        lambda p, s: p.add_new_points_or_box(s, 2, 3, points=[[60.0, 60.0]],
+                                             labels=[0],
+                                             clear_old_points=False)]
+    vos = {}
+    for d in ("cpu", "cuda"):
+        p = InteractiveVideoPredictor(models[d][1], models[d][2])
+        s = p.init_state(u8)
+        grids = [call(p, s) for call in calls]
+        outs = list(p.propagate_in_video(s))
+        outs += list(p.propagate_in_video(s, reverse=True,
+                                          max_frame_num_to_track=2))
+        vos[d] = grids, outs
+    for a, b in zip(vos["cpu"][0], vos["cuda"][0]):
+        compare("vos_prompts", b, a)
+    for a, b in zip(vos["cpu"][1], vos["cuda"][1]):
+        if a["obj_ids"] != b["obj_ids"] or a["frame_index"] != b[
+                "frame_index"]:
+            bad.append("the VOS predictor's frames or ids differ")
+        compare("vos_propagate", b["logits"], a["logits"])
+        compare("vos_propagate", b["masks"], a["masks"], masks=True)
+
+    card_launches = dict(A.LAUNCHES)
+    worst, worst_px = max(errs.values()), max(px)
+    if not worst <= PROMPTS_REF_LIMITS["logits"]:
+        bad.append(f"outputs {worst} of scale apart")
+    if not worst_px <= PROMPTS_REF_LIMITS["mask_pixels"]:
+        bad.append(f"{worst_px} of mask pixels differ")
+    if ids_differ > PROMPTS_REF_LIMITS["ids"] or sel_differ:
+        bad.append(f"ids/active differ on {ids_differ} entries, the "
+                   f"decoder's selection in {sel_differ} cases")
+    if not card_launches.get("flash_fwd") or not card_launches.get(
+            "flash_fwd_lse"):
+        bad.append(f"the card's runs launched {card_launches}")
+    say("prompts_ref", max_scaled_err=worst, by_part=json.dumps(
+        {k: float(f"{v:.3g}") for k, v in errs.items()}).replace(" ", ""),
+        mask_pixels_differ=worst_px, ids_differ=ids_differ,
+        selection_differs=sel_differ, keep_sets_differ=keep_differ,
+        card_launches=json.dumps(card_launches).replace(" ", ""),
+        limits=json.dumps(PROMPTS_REF_LIMITS).replace(" ", ""),
+        s=round(time.perf_counter() - t0, 1))
+    if bad:
+        fail("prompts_ref: " + "; ".join(bad))
+
+
+def _profiled(fn):
+    """``fn()`` once under torch.profiler: (wall ms, device busy ms, idle
+    share, the top kernels by device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+    kernels = device_kernels(prof)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return ms, busy, 1.0 - busy / ms, json.dumps(
+        [[e.key[:50], round(e.self_device_time_total / 1e3, 2), e.count]
+         for e in top]).replace(" ", "")
+
+
+def prompts_phase():
+    """The prompt paths at full width, each with its launches counted from
+    0 and held to PROMPTS_PER_*, its time and peak device memory; one
+    processor frame, two session frames and two VOS frames profiled.
+    Returns the three paths' launches, summed."""
+    import numpy as np
+    import torch
+
+    from skix_torch.ops import attention as A
+    from skix_torch.tracking.image_processor import Sam3Processor
+    from skix_torch.tracking.memory_tracker import MaskMemoryTracker
+    from skix_torch.tracking.sam3_detector import Sam3Detector
+    from skix_torch.tracking.sam_prompt_encoder import InteractiveSegmenter
+    from skix_torch.tracking.session import VideoPredictor
+    from skix_torch.tracking.vos_predictor import InteractiveVideoPredictor
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.device("meta"):
+        det = Sam3Detector.full_size(geometry=True)
+        seg = InteractiveSegmenter(features=256, trunk="vitdet",
+                                   img_size=PROMPTS_VOS_HW, num_heads=8)
+    det = det.to_empty(device=dev).init_weights(gen).eval()
+    seg = seg.to_empty(device=dev).init_weights(gen).eval()
+    trk = MaskMemoryTracker().init_weights(
+        torch.Generator().manual_seed(1)).to(dev).eval()
+    rng = np.random.default_rng(5)
+    frames = shifted_frames(rng, max(PROMPTS_FRAMES, PROMPTS_SESSION_T),
+                            PROMPTS_HW)
+    total, by_style, fields = {}, {}, {}
+
+    def counted(name, fn, expected):
+        """``fn()`` with the launch counts from 0, timed, peak memory."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = dict(A.LAUNCHES)
+        if launches != expected:
+            fail(f"prompts: {name} launched {launches}, expected {expected}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        for k, v in A.LAUNCHES_BY_STYLE.items():
+            by_style[k] = by_style.get(k, 0) + v
+        fields[f"{name}_peak_mib"] = round(
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 20, 1)
+        return out, ms
+
+    # Sam3Processor: 4 frames × (text, +box, +point, +negative point). Each
+    # prompt runs at the threshold that kept PROMPTS_KEPT queries of it in
+    # the warm-up, which runs the same prompts: seeded weights put every
+    # score far below the default 0.5, and the scores' spread from prompt
+    # to prompt is wide
+    proc = Sam3Processor(det)
+    steps = [lambda s: proc.set_text_prompt("person", s),
+             lambda s: proc.add_geometric_prompt([0.45, 0.5, 0.2, 0.6], True,
+                                                 s),
+             lambda s: proc.add_point_prompt([0.45, 0.4], True, s),
+             lambda s: proc.add_point_prompt([0.1, 0.1], False, s)]
+    thresholds = []
+    for f in frames[:PROMPTS_FRAMES]:
+        state = proc.set_image(f)
+        thresholds += [float(np.sort(step(state)["all_scores"])[-PROMPTS_KEPT])
+                       for step in steps]
+    prompt_ms, kept = [], []
+
+    def run_processor():
+        for i, f in enumerate(frames[:PROMPTS_FRAMES]):
+            state = proc.set_image(f)
+            for j, step in enumerate(steps):
+                proc.set_confidence_threshold(thresholds[i * len(steps) + j])
+                t = time.perf_counter()
+                out = step(state)          # host copies: synchronized
+                prompt_ms.append((time.perf_counter() - t) * 1e3)
+                kept.append(len(out["scores"]))
+                masks = out["masks_lowres"]
+                if (out["all_scores"].shape != (det.num_queries,)
+                        or not np.isfinite(out["all_scores"]).all()
+                        or masks.shape[0] != kept[-1] or masks.ndim != 3
+                        or not np.isfinite(masks).all()):
+                    fail("prompts: the processor's outputs are not finite "
+                         f"({det.num_queries},) scores and (kept, h, w) "
+                         f"masks: {masks.shape}")
+                if not kept[-1]:
+                    fail("prompts: a processor prompt kept no query")
+        return out
+    n = PROMPTS_FRAMES * len(steps)
+    out, proc_ms = counted("processor", run_processor, {
+        k: n * v for k, v in PROMPTS_PER_FORWARD.items()})
+    state = proc.set_image(frames[0])
+
+    def first_frame():
+        for j, step in enumerate(steps):
+            proc.set_confidence_threshold(thresholds[j])
+            step(state)
+    prof = _profiled(first_frame)
+    say("prompts_processor", frames=PROMPTS_FRAMES, prompts=n,
+        ms_per_prompt=round(float(np.mean(prompt_ms)), 3),
+        median_ms_per_prompt=round(float(np.median(prompt_ms)), 3),
+        wall_ms=round(proc_ms, 1),
+        thresholds=[round(min(thresholds), 4), round(max(thresholds), 4)],
+        kept_mean=float(np.mean(kept)), kept_min=min(kept),
+        kept_max=max(kept), mask_hw=list(out["masks_lowres"].shape[1:]),
+        peak_mib=fields["processor_peak_mib"],
+        profiled_ms_per_prompt=round(prof[0] / len(steps), 3),
+        device_busy_ms=round(prof[1], 2), device_idle_share=round(prof[2], 4),
+        top=prof[3])
+
+    # the session: 16 frames of 1080p, a normalized box on frame 0 and
+    # clicks on frame 8, both ways from frame 8
+    pred = VideoPredictor(det, trk, smoke_prompts=True)
+    sid = pred.handle_request({"type": "start_session",
+                               "frames": frames[:PROMPTS_SESSION_T]}
+                              )["session_id"]
+    pred.handle_request({"type": "add_prompt", "session_id": sid,
+                         "text": "person", "frame_index": 0,
+                         "bounding_boxes": [[0.35, 0.2, 0.2, 0.6]],
+                         "bounding_box_labels": [1]})
+    pred.handle_request({"type": "add_prompt", "session_id": sid,
+                         "frame_index": 8, "points": [[870.0, 560.0],
+                                                      [100.0, 100.0]],
+                         "point_labels": [1, 0]})
+    stream = {"type": "propagate_in_video", "session_id": sid,
+              "start_frame_index": 8}
+    two = {**stream, "max_frame_num_to_track": 2,
+           "propagation_direction": "forward"}
+    list(pred.handle_stream_request(two))                # warm-up
+
+    def run_session():
+        order, active = [], 0
+        for item in pred.handle_stream_request(stream):
+            o = item["outputs"]
+            if (o["mask"].shape != (16, *PROMPTS_HW)
+                    or not np.isfinite(o["bbox"]).all()):
+                fail(f"prompts: session outputs {o['mask'].shape}")
+            order.append(item["frame_index"])
+            active += int(o["active"].sum())
+        return order, active
+    n = len(range(8, PROMPTS_SESSION_T)) + len(range(8, -1, -1))
+    (order, active), session_ms = counted("session", run_session, {
+        k: n * v for k, v in PROMPTS_SESSION_PER_FRAME.items()})
+    if order != list(range(8, 16)) + list(range(8, -1, -1)):
+        fail(f"prompts: the session yielded frames {order}")
+    prof = _profiled(lambda: list(pred.handle_stream_request(two)))
+    say("prompts_session", frames=n, ms_per_frame=round(session_ms / n, 3),
+        active_slot_frames=active, peak_mib=fields["session_peak_mib"],
+        profiled_ms_per_frame=round(prof[0] / 2, 3),
+        device_busy_ms=round(prof[1], 2), device_idle_share=round(prof[2], 4),
+        top=prof[3], stats=json.dumps(pred.session_stats(sid)).replace(
+            " ", ""))
+    del pred, proc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the VOS predictor with the full-width segmenter: a box and a
+    # correction click on frame 0, then 16 frames forward
+    u8 = shifted_frames(rng, PROMPTS_VOS_T, (PROMPTS_VOS_HW,) * 2)
+    vos = InteractiveVideoPredictor(trk, seg)
+    warm = vos.init_state(u8[:2])
+    vos.add_new_points_or_box(warm, 1, 0, box=[300, 200, 700, 900])
+
+    def run_vos():
+        st = vos.init_state(u8)
+        vos.add_new_points_or_box(st, 0, 1, box=[300, 200, 700, 900])
+        vos.add_new_points_or_box(st, 0, 1, points=[[500.0, 550.0]],
+                                  labels=[1], clear_old_points=False)
+        outs = list(vos.propagate_in_video(st))
+        if len(outs) != PROMPTS_VOS_T or outs[-1]["masks"].shape != (
+                1, PROMPTS_VOS_HW, PROMPTS_VOS_HW):
+            fail("prompts: the VOS predictor's outputs are malformed")
+        return st
+    st, vos_ms = counted("vos", run_vos, dict(PROMPTS_PER_ENCODE))
+
+    def two_vos_frames():
+        st2 = vos.init_state(u8[:2])
+        vos.add_new_points_or_box(st2, 0, 1, box=[300, 200, 700, 900])
+        list(vos.propagate_in_video(st2))
+    prof = _profiled(two_vos_frames)
+    x = torch.zeros((1, PROMPTS_VOS_HW, PROMPTS_VOS_HW, 3), device=dev)
+    feats = st["seg_feats"][0]
+    pts = torch.tensor([[[300.0, 200.0], [700.0, 900.0], [500.0, 550.0]
+                         ] + [[0.0, 0.0]] * 5], device=dev)
+    labels = torch.tensor([[2, 3, 1] + [-1] * 5], device=dev)
+    mask_in = torch.zeros((1, 4 * feats.shape[1], 4 * feats.shape[2], 1),
+                          device=dev)
+    with torch.no_grad():
+        encode_ms = cuda_ms(lambda: seg.encode_image(x), 3)
+        decode_ms = cuda_ms(lambda: seg.predict_from_embedding(
+            feats, pts, labels, None, mask_in), 10)
+    say("prompts_vos", frames=PROMPTS_VOS_T, hw=PROMPTS_VOS_HW,
+        encode_ms=round(encode_ms, 3), decode_ms=round(decode_ms, 3),
+        ms_per_frame=round(vos_ms / PROMPTS_VOS_T, 3),
+        seg_grid=list(feats.shape[1:3]), peak_mib=fields["vos_peak_mib"],
+        profiled_ms_two_frames=round(prof[0], 3),
+        device_busy_ms=round(prof[1], 2), device_idle_share=round(prof[2], 4),
+        top=prof[3],
+        launches=json.dumps(PROMPTS_PER_ENCODE).replace(" ", ""),
+        launches_total=json.dumps(total).replace(" ", ""),
+        s=round(time.perf_counter() - t0, 1))
+    del det, seg, trk, vos, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, by_style
+
+
 GROUPS = ("kernels", "vggt", "front", "chain", "side", "vggt_cli", "prep",
           "views", "image_edit", "train", "train_cli", "tools",
-          "vos")
+          "vos", "prompts")
 
 
 def main() -> int:
     # ``--only a,b``: a partial run of these phase groups (GROUPS; "train"
     # needs "front", whose sam3 checkpoints it starts from; "train_cli",
-    # "tools" and "vos" need none) after the build,
+    # "tools", "vos" and "prompts" need none) after the build,
     # with no kernels line and no verdict. Without arguments every group
     # runs, as the verdict needs.
     only = None
@@ -6720,6 +7301,11 @@ def main() -> int:
             # fixture trackers card against CPU; then at full width
             vos_reference_phase()
             paths["vos"] = vos_phase()
+        if want("prompts"):
+            # 9f. point and box prompts: the CPU twins' items on the
+            # trained fixture card against CPU; then at full width
+            prompts_reference_phase()
+            paths["prompts"] = prompts_phase()
 
     if only is not None:
         say("only", groups=",".join(sorted(only)),

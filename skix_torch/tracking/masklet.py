@@ -17,9 +17,11 @@ array directly.
 
 With ``fill_holes`` the detection and tracker mask logits of each frame
 pass through :func:`skix_torch.ops.masks.fill_holes_in_mask_scores` before
-the lifecycle, as in skix. Geometry prompts
-(``MaskletVideoModel.step(geometry=...)``) come with a later slice and
-raise.
+the lifecycle, as in skix. A frame with point or box prompts
+(``MaskletVideoModel.step(geometry=...)``, ``propagate(geometry_by_frame=
+...)``) runs its detector call with them; every other frame runs as
+without. :func:`track_masklets` runs the lifecycle over a clip's
+detections alone, each slot carrying its last matched detection's mask.
 """
 
 from __future__ import annotations
@@ -42,7 +44,6 @@ NO_OBJ_LOGIT = -10.0
 _NEVER_OCCLUDED = -1
 _ALWAYS_OCCLUDED = 1 << 20
 _BIG = 1 << 20
-_GEOMETRY_SLICE = "ROADMAP Queue 1 item 11b (the geometry prompts)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,6 +278,36 @@ def masklet_update(state: MaskletState, trk_mask_logits, det_mask_logits,
 # --------------------------------------------------------------------------
 # full video model: Sam3Detector + MaskMemoryTracker + masklet lifecycle
 # --------------------------------------------------------------------------
+def track_masklets(det_mask_logits, det_scores, det_valid,
+                   cfg: MaskletConfig = MaskletConfig()):
+    """Whole-clip mask-IoU tracking without a memory tracker: each slot
+    carries its last matched detection's mask as its propagated mask.
+    ``det_mask_logits (T, N, h, w)``, ``det_scores (T, N)``, ``det_valid
+    (T, N)`` → the per-frame slot outputs stacked over T (with ``boxes``,
+    the xyxy boxes of the output masks on the grid)."""
+    det_mask_logits = torch.as_tensor(det_mask_logits, dtype=torch.float32)
+    det_scores = torch.as_tensor(det_scores, dtype=torch.float32,
+                                 device=det_mask_logits.device)
+    det_valid = torch.as_tensor(det_valid, dtype=torch.bool,
+                                device=det_mask_logits.device)
+    h, w = det_mask_logits.shape[-2:]
+    state = init_masklet_state(cfg, device=det_mask_logits.device)
+    carried = torch.full((cfg.max_objects, h, w), NO_OBJ_LOGIT,
+                         device=det_mask_logits.device)
+    outs = []
+    for dm, ds, dv in zip(det_mask_logits, det_scores, det_valid):
+        state, out = masklet_update(state, carried, dm, ds, dv, cfg)
+        # the carried mask: the matched detection's, a spawn's own
+        src = torch.where(out["spawn"], out["spawn_det"], out["best_det"])
+        carried = torch.where((out["matched"] | out["spawn"])[:, None, None],
+                              dm[src], carried)
+        carried = torch.where(state.active[:, None, None], carried,
+                              NO_OBJ_LOGIT)
+        out["boxes"] = masks_to_boxes(out["out_mask_logits"] > 0)
+        outs.append(out)
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
 def _select_dets(det_boxes_cxcywh, det_score_logits, det_mask_logits,
                  cfg: MaskletConfig, out_hw):
     """Detector outputs (Q queries) → fixed N detection slots: sigmoid
@@ -412,17 +443,18 @@ class MaskletVideoModel:
     def step(self, frame, prompt_tokens, state, banks, geometry=None,
              text_pad=None):
         """One frame: ``frame (H, W, 3)`` uint8/float, ``prompt_tokens
-        (L, d_model)``. Returns (state, banks, outputs on the device)."""
-        if geometry:
-            raise NotImplementedError(
-                f"geometry prompts come with {_GEOMETRY_SLICE}")
+        (L, d_model)``; ``geometry``: optional point/box slots of this frame
+        (the detector's keywords, each with a batch axis of 1, and the
+        ``geometry_encoder`` to use where the detector has none). Returns
+        (state, banks, outputs on the device)."""
         frame = torch.as_tensor(np.asarray(frame), device=self.device)
         with self._span("detector"):
             det_in, tin = _prep_frame(frame, frame.dtype == torch.uint8,
                                       self.detector.img_size,
                                       self.trk_img_size)
             det = self.detector(det_in, prompt_tokens[None],
-                                None if text_pad is None else text_pad[None])
+                                None if text_pad is None else text_pad[None],
+                                **(geometry or {}))
         with self._span("tracker"):
             return _masklet_frame_core(
                 self.tracker, self.cfg, self.fill_holes, tin,
@@ -439,10 +471,9 @@ class MaskletVideoModel:
         ``tracker_score`` and, with ``include_lowres_logits``,
         ``mask_logits_lowres``. ``start_frame`` is the global index of
         ``frames[0]`` (the lifecycle counts down from it under
-        ``cfg.reverse``)."""
-        if geometry_by_frame:
-            raise NotImplementedError(
-                f"geometry prompts come with {_GEOMETRY_SLICE}")
+        ``cfg.reverse``). ``geometry_by_frame``: optional ``{t: geometry}``
+        (:meth:`step`'s) for frames ``t`` of ``frames``."""
+        geometry_by_frame = geometry_by_frame or {}
         T, H, W = frames.shape[:3]
         out_hw = (H, W) if yield_masks_at is None else tuple(yield_masks_at)
         prompt_tokens = torch.as_tensor(prompt_tokens, device=self.device)
@@ -450,7 +481,8 @@ class MaskletVideoModel:
                                        start_frame=start_frame)
         for t in range(T):
             state, banks, out = self.step(frames[t], prompt_tokens, state,
-                                          banks, text_pad=text_pad)
+                                          banks, geometry_by_frame.get(t),
+                                          text_pad=text_pad)
             with self._span("outputs"):
                 logits = out["out_mask_logits"]           # (K, gh, gw)
                 masks = resize(logits, (logits.shape[0], *out_hw),

@@ -7,7 +7,10 @@ bias, presence token and DAC one-to-many training queries, dot-product
 scoring against the pooled prompt (per decoder layer with
 ``with_aux_scores``), and the maskformer pixel decoder + mask predictor.
 Without a text prompt the detector runs unconditioned on its learned
-``null_prompt`` token, as skix's ``train_detector`` trains it.
+``null_prompt`` token, as skix's ``train_detector`` trains it. Point and
+box prompts go through the geometry prompt encoder (direct projection +
+pooled image feature + sine position + label embedding per slot) and are
+appended to the text prompt, pads and all.
 
 Attention: an unbiased, unmasked self-attention of ``L ≥ flash_min_seq``
 tokens (the fusion encoder's image self-attention, 5184 tokens of head
@@ -19,9 +22,7 @@ the trunk configuration that converted SAM3 weights need (the interleaved
 rope through K1/K2, :mod:`skix_torch.tracking.vitdet`). The converters of
 reference state dicts come beside each module:
 :func:`skix_torch.tracking.vitdet.convert_vitdet_state_dict` for the
-trunk, :func:`convert_fusion_encoder` here for the fusion encoder. The
-geometry prompt encoder comes with a later slice: a call that needs it
-raises.
+trunk, :func:`convert_fusion_encoder` here for the fusion encoder.
 """
 
 from __future__ import annotations
@@ -39,9 +40,6 @@ from skix_torch.models.layers import (Conv, Dense, GroupNorm, LayerNorm,
 from skix_torch.ops.attention import flash_attention
 from skix_torch.tracking.vitdet import SimpleFPNNeck, ViTDetBackbone
 from skix_torch.utils.image import resize
-
-_GEOMETRY_SLICE = "ROADMAP Queue 1 item 11b (the geometry prompts)"
-
 
 def _inverse_sigmoid(x, eps: float = 1e-5):
     x = torch.clamp(x, eps, 1.0 - eps)
@@ -101,6 +99,121 @@ def pool_prompt(prompt, prompt_pad_mask=None):
     valid = (~prompt_pad_mask).to(prompt.dtype)[..., None]
     n = torch.clamp(valid.sum(dim=1), min=1.0)
     return (prompt * valid).sum(dim=1) / n
+
+
+# --------------------------------------------------------------------------
+# geometry prompt encoder
+# --------------------------------------------------------------------------
+def _bilinear_sample(feat, pts01):
+    """``feat (B, H, W, C)``, ``pts01 (B, N, 2)`` (x, y) in [0, 1] →
+    ``(B, N, C)``: skix's own gather (floor, the four taps' indices clipped
+    to the grid, then the blend), not ``F.grid_sample``."""
+    B, H, W, _ = feat.shape
+    x = pts01[..., 0] * W - 0.5
+    y = pts01[..., 1] * H - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = (x - x0)[..., None], (y - y0)[..., None]
+    b = torch.arange(B, device=feat.device)[:, None]
+
+    def at(yy, xx):
+        return feat[b, yy.long().clamp(0, H - 1), xx.long().clamp(0, W - 1)]
+
+    return ((1 - wy) * ((1 - wx) * at(y0, x0) + wx * at(y0, x0 + 1))
+            + wy * ((1 - wx) * at(y0 + 1, x0) + wx * at(y0 + 1, x0 + 1)))
+
+
+def bilinear_sample(feat, pts01):
+    """``feat (H, W, C)``, ``pts01 (N, 2)`` (x, y) in [0, 1] → (N, C)."""
+    return _bilinear_sample(feat[None], pts01[None])[0]
+
+
+def _box_grid_sample(feat, boxes_cxcywh, grid: int = 7):
+    """``feat (B, H, W, C)``, ``boxes (B, N, 4)`` → ``(B, N, C)``: the mean
+    of a ``grid × grid`` bilinear sample inside each normalized box."""
+    B, N = boxes_cxcywh.shape[:2]
+    cx, cy, w, h = boxes_cxcywh.unbind(-1)
+    lin = (torch.arange(grid, device=feat.device) + 0.5) / grid
+    gx = cx[..., None] - w[..., None] / 2 + lin * w[..., None]   # (B, N, g)
+    gy = cy[..., None] - h[..., None] / 2 + lin * h[..., None]
+    pts = torch.stack([gx.repeat_interleave(grid, -1),
+                       gy.repeat(1, 1, grid)], -1)              # (B, N, g², 2)
+    samples = _bilinear_sample(feat, pts.reshape(B, N * grid * grid, 2))
+    return samples.reshape(B, N, grid * grid, -1).mean(dim=2)
+
+
+def box_grid_sample(feat, boxes_cxcywh, grid: int = 7):
+    """``feat (H, W, C)``, ``boxes (N, 4)`` normalized cxcywh → (N, C)."""
+    return _box_grid_sample(feat[None], boxes_cxcywh[None], grid)[0]
+
+
+def _sincos_vec(v, dim: int, temperature: float = 10000.0):
+    """1D sine-cosine features of ``v (...,)`` → (..., dim)."""
+    dim_t = temperature ** (2 * torch.arange(dim // 2, device=v.device) / dim)
+    f = v[..., None] / dim_t
+    return torch.cat([torch.sin(f), torch.cos(f)], dim=-1)
+
+
+class GeometryPromptEncoder(nn.Module):
+    """Point and box prompts → ``(B, Np + Nb, d_model)`` tokens and their
+    pad mask (True = pad). Each slot embeds as direct projection + pooled
+    image feature + sine position + label embedding (points neg/pos, boxes
+    neg/pos); invalid slots are zeroed and padded."""
+
+    def __init__(self, d_model: int = 256, max_points: int = 8,
+                 max_boxes: int = 4, roi_grid: int = 7):
+        super().__init__()
+        self.d_model, self.roi_grid = d_model, roi_grid
+        self.max_points, self.max_boxes = max_points, max_boxes
+        self.label_embed = nn.Parameter(torch.zeros(4, d_model))
+        self.points_direct = Dense(2, d_model)
+        self.points_pool = Dense(d_model, d_model)
+        self.points_pos = Dense(2 * (d_model // 2), d_model)
+        self.boxes_direct = Dense(4, d_model)
+        self.boxes_pool = Dense(d_model, d_model)
+        self.boxes_pos = Dense(4 * (d_model // 4), d_model)
+
+    def forward(self, img_feat, points, point_labels, point_valid, boxes,
+                box_labels, box_valid):
+        """``img_feat (B, h, w, d)``; ``points (B, Np, 2)`` in [0, 1];
+        ``boxes (B, Nb, 4)`` normalized cxcywh; labels int (0 = negative,
+        1 = positive); valid bool masks."""
+        d = self.d_model
+        p_tok = (self.points_direct(points)
+                 + self.points_pool(_bilinear_sample(img_feat, points))
+                 + self.points_pos(torch.cat(
+                     [_sincos_vec(points[..., 0], d // 2),
+                      _sincos_vec(points[..., 1], d // 2)], -1))
+                 + self.label_embed[point_labels.long().clamp(0, 1)])
+        b_tok = (self.boxes_direct(boxes)
+                 + self.boxes_pool(_box_grid_sample(img_feat, boxes,
+                                                    self.roi_grid))
+                 + self.boxes_pos(torch.cat(
+                     [_sincos_vec(boxes[..., i], d // 4) for i in range(4)],
+                     -1))
+                 + self.label_embed[2 + box_labels.long().clamp(0, 1)])
+        tokens = torch.cat([p_tok, b_tok], 1)
+        valid = torch.cat([point_valid, box_valid], 1).to(torch.bool)
+        return torch.where(valid[..., None], tokens, 0.0), ~valid
+
+    def init_weights(self, generator=None):
+        """Random weights in flax's init distributions: kernels
+        LeCun-normal, biases 0, ``label_embed`` normal(0.02)."""
+        init_like_flax(self, generator)
+        with torch.no_grad():
+            self.label_embed.normal_(0.0, 0.02, generator=generator)
+        return self
+
+
+def geometry_slots(max_points: int, max_boxes: int, lead=()) -> dict:
+    """Point and box slots, every one invalid, with leading axes ``lead``:
+    the detector's six geometry keywords as numpy arrays (points normalized
+    xy, boxes normalized cxcywh, int32 labels, bool valid masks)."""
+    return {"points": np.zeros((*lead, max_points, 2), np.float32),
+            "point_labels": np.zeros((*lead, max_points), np.int32),
+            "point_valid": np.zeros((*lead, max_points), bool),
+            "boxes": np.zeros((*lead, max_boxes, 4), np.float32),
+            "box_labels": np.zeros((*lead, max_boxes), np.int32),
+            "box_valid": np.zeros((*lead, max_boxes), bool)}
 
 
 # --------------------------------------------------------------------------
@@ -406,17 +519,26 @@ class Sam3Detections(NamedTuple):
 
 
 class Sam3Detector(nn.Module):
-    """Image + text prompt memory → promptable detections.
+    """Image + (text prompt memory | point and box prompts) → promptable
+    detections.
 
     ``full_size()`` is the reference configuration (1008 px, 1024×32
     ViT-Det, d_model 256, 200 queries, 6+6 layers); ``tiny()`` the test
     configuration of skix.
 
     ``null_prompt``: the model has the learned ``null_prompt`` token that
-    an unconditioned call (no text memory) attends to. skix creates that
-    parameter only when its ``init`` ran without a prompt, as
-    ``train_detector``'s does, so a variables tree has it or not; the flag
-    mirrors that. ``remat`` recomputes each trunk block in the backward
+    an unconditioned call (no text memory, no geometry) attends to.
+    ``geometry``: the model has the geometry prompt encoder
+    (``geometry_encoder``) of ``max_points`` point and ``max_boxes`` box
+    slots. skix creates each of those parameters only when its ``init`` ran
+    with that kind of prompt (``train_detector``'s init has no prompt, the
+    committed tracker fixtures' a text prompt alone), so a variables tree
+    has them or not; the flags mirror that. A caller that prompts a model
+    built without the branch brings its own encoder (:meth:`
+    make_geometry_encoder`, ``forward(geometry_encoder=...)``), as skix's
+    ``Sam3Processor`` and ``VideoPredictor`` merge a grafted branch into
+    their own variables; the model is not changed.
+    ``remat`` recomputes each trunk block in the backward
     (``torch.utils.checkpoint``), skix's ``nn.remat``; off by default."""
 
     def __init__(self, img_size: int = 1008, patch_size: int = 14,
@@ -431,7 +553,7 @@ class Sam3Detector(nn.Module):
                  tail_flash: bool = True, rope_style: str = "skix",
                  pretrain_img_size: Optional[int] = None,
                  remat: bool = False, null_prompt: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 geometry: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.img_size, self.d_model = img_size, d_model
         self.num_queries = num_queries
@@ -445,6 +567,9 @@ class Sam3Detector(nn.Module):
             remat=remat, dtype=dtype)
         self.null_prompt = (nn.Parameter(torch.zeros(1, 1, d_model))
                             if null_prompt else None)
+        self.geometry_encoder = (GeometryPromptEncoder(d_model, max_points,
+                                                       max_boxes)
+                                 if geometry else None)
         self.neck = SimpleFPNNeck(backbone_dim, d_model)
         self.encoder = FusionEncoder(
             d_model, encoder_layers,
@@ -481,38 +606,75 @@ class Sam3Detector(nn.Module):
                            (self.null_prompt, 0.02)):
                 if p is not None:
                     p.normal_(0.0, std, generator=generator)
+            if self.geometry_encoder is not None:
+                self.geometry_encoder.label_embed.normal_(
+                    0.0, 0.02, generator=generator)
         return self
 
+    def make_geometry_encoder(self, generator=None):
+        """A new geometry prompt encoder of this model's width and slots,
+        its weights drawn from ``generator`` (flax's init distributions), on
+        the model's device. The model keeps its own branch, or none."""
+        enc = GeometryPromptEncoder(self.d_model, self.max_points,
+                                    self.max_boxes).init_weights(generator)
+        return enc.to(self.presence_head.weight.device)
+
     def forward(self, images, text_memory=None, text_pad_mask=None,
-                points=None, boxes=None, apply_dac: bool = False,
-                with_aux_scores: bool = False, **geometry):
+                points=None, point_labels=None, point_valid=None,
+                boxes=None, box_labels=None, box_valid=None,
+                geometry_encoder=None, apply_dac: bool = False,
+                with_aux_scores: bool = False):
         """``images (B, H, W, 3)`` in [0, 1]; ``text_memory (B, L, d_model)``
-        (CLIP resizer output, or the hash smoke embedding), or None for the
-        unconditioned detector. ``apply_dac=True`` (training) adds the DAC
-        one-to-many outputs; ``with_aux_scores=True`` (training) scores
-        every decoder layer's queries through the shared scoring head."""
-        if points is not None or boxes is not None or geometry:
-            raise NotImplementedError(
-                f"geometry prompts come with {_GEOMETRY_SLICE}")
+        (CLIP resizer output, or the hash smoke embedding), or None. Point
+        and box prompts (needs ``geometry``): ``points (B, max_points, 2)``
+        normalized xy, ``boxes (B, max_boxes, 4)`` normalized cxcywh, int
+        labels (0 = negative, 1 = positive) and bool valid masks per slot;
+        a missing one of the six is zeros (no valid slot).
+        ``geometry_encoder`` encodes them in place of the model's own
+        branch. The prompt is text ‖ geometry; with neither, the
+        ``null_prompt`` token.
+        ``apply_dac=True`` (training) adds the DAC one-to-many outputs;
+        ``with_aux_scores=True`` (training) scores every decoder layer's
+        queries through the shared scoring head."""
         B = images.shape[0]
+        dev = images.device
+        use_geometry = points is not None or boxes is not None
+        if geometry_encoder is None:
+            geometry_encoder = self.geometry_encoder
+        if use_geometry and geometry_encoder is None:
+            raise ValueError("point or box prompts, and this detector has no "
+                             "geometry encoder (build it with geometry=True, "
+                             "or pass one from make_geometry_encoder)")
         trunk = self.backbone((images - 0.5) / 0.5)
         feats, poss = self.neck(trunk)
         f = feats[2]                 # the 1.0-scale level (stride = patch)
         h, w = f.shape[1], f.shape[2]
         src = f.reshape(B, h * w, self.d_model)
         pos = poss[2].reshape(1, h * w, self.d_model)
+        prompts, pads = [], []
         if text_memory is not None:
-            prompt = text_memory
-            prompt_pad = (torch.zeros(text_memory.shape[:2], dtype=torch.bool,
-                                      device=images.device)
-                          if text_pad_mask is None else text_pad_mask)
-        elif self.null_prompt is not None:  # a learned "detect anything"
-            prompt = self.null_prompt.expand(B, 1, self.d_model)
-            prompt_pad = torch.zeros((B, 1), dtype=torch.bool,
-                                     device=images.device)
-        else:
-            raise ValueError("no text prompt, and this detector has no "
-                             "null_prompt (build it with null_prompt=True)")
+            prompts.append(text_memory)
+            pads.append(torch.zeros(text_memory.shape[:2], dtype=torch.bool,
+                                    device=dev)
+                        if text_pad_mask is None else text_pad_mask)
+        if use_geometry:
+            given = (points, point_labels, point_valid, boxes, box_labels,
+                     box_valid)
+            empty = geometry_slots(self.max_points, self.max_boxes, (B,))
+            g_tok, g_pad = geometry_encoder(f, *(
+                torch.as_tensor(e, device=dev) if x is None else x
+                for x, e in zip(given, empty.values())))
+            prompts.append(g_tok)
+            pads.append(g_pad)
+        if not prompts:
+            if self.null_prompt is None:
+                raise ValueError("no text prompt, and this detector has no "
+                                 "null_prompt (build it with "
+                                 "null_prompt=True)")
+            prompts.append(self.null_prompt.expand(B, 1, self.d_model))
+            pads.append(torch.zeros((B, 1), dtype=torch.bool, device=dev))
+        prompt = prompts[0] if len(prompts) == 1 else torch.cat(prompts, 1)
+        prompt_pad = pads[0] if len(pads) == 1 else torch.cat(pads, 1)
         memory = self.encoder(src, pos, prompt, prompt_pad)
         dec = self.decoder(memory, pos, prompt, prompt_pad, feat_hw=(h, w),
                            apply_dac=apply_dac)

@@ -16,9 +16,13 @@ Port of ``skix/tracking/session.py``: ``start_session`` →
 Text prompts go through the CLIP tower (``clip=(tokenizer, encoder)``: the
 reference path), the byte-level ``text_encoder`` (compact path) or,
 without either, the deterministic hash embedding (compact, or
-``smoke_prompts=True`` for the Sam3Detector: skix's smoke mode).
-Geometric prompts come with a later slice and raise
-``NotImplementedError``.
+``smoke_prompts=True`` for the Sam3Detector: skix's smoke mode). Point and
+box prompts (Sam3Detector only) fill fixed slots per frame, in normalized
+coordinates, and condition that frame's detection through the detector's
+geometry encoder; without a text prompt the session prompts ``"visual"``.
+
+``handle_request`` and ``handle_stream_request`` are the reference's dict
+request protocol (its ``bounding_boxes`` in normalized xywh).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 from skix_torch.tracking.detector import embed_text_prompt
 from skix_torch.tracking.lifecycle import (TrackerConfig, init_tracker_state,
                                            tracker_step)
+from skix_torch.tracking.sam3_detector import geometry_slots
 from skix_torch.utils.image import resize
 
 log = logging.getLogger(__name__)
@@ -44,6 +49,8 @@ class _Session:
     frames: np.ndarray            # (T, H, W, 3) uint8
     prompts: Dict[str, np.ndarray]
     removed_ids: set
+    # frame_idx → the frame's geometry slots (normalized coordinates)
+    geometry: Dict[int, dict] = dataclasses.field(default_factory=dict)
     # text → (L,) bool pad mask (True = padding token) of a CLIP prompt;
     # hash prompts have none (all tokens valid)
     prompt_pads: Dict[str, np.ndarray] = dataclasses.field(
@@ -56,7 +63,7 @@ class VideoPredictor:
     def __init__(self, detector=None, tracker=None, masklet_cfg=None,
                  smoke_prompts: bool = False, clip=None, timer=None,
                  tracker_cfg: Optional[TrackerConfig] = None,
-                 batch_size: int = 4, text_encoder=None):
+                 batch_size: int = 4, text_encoder=None, rng_seed: int = 0):
         """``detector``: a compact :class:`skix_torch.tracking.detector.
         DetrDetector` or a :class:`skix_torch.tracking.sam3_detector.
         Sam3Detector`, with its weights; ``tracker``: a :class:`skix_torch.
@@ -69,7 +76,10 @@ class VideoPredictor:
         variables)`` triple). ``text_encoder``: optional :class:`skix_torch.
         tracking.text_encoder.TextEncoder` for the compact path's prompts.
         ``timer``: optional ``StageTimer`` for the per-frame ``detector``/
-        ``tracker``/``outputs`` spans and the per-prompt ``clip`` span."""
+        ``tracker``/``outputs`` spans and the per-prompt ``clip`` span.
+        ``rng_seed`` seeds the geometry encoder that the predictor keeps
+        for a Sam3Detector built without one, made at the first point or
+        box prompt; the detector is not changed."""
         from skix_torch.tracking.detector import DetrDetector
         from skix_torch.tracking.sam3_detector import Sam3Detector
 
@@ -88,9 +98,65 @@ class VideoPredictor:
         self.timer = timer
         self.cfg = tracker_cfg or TrackerConfig()
         self.batch_size = int(batch_size)
+        self.rng_seed = int(rng_seed)
+        self.geometry_encoder = None
         self.device = next(detector.parameters()).device
         self.sessions: Dict[int, _Session] = {}
         self._next_session = 0
+
+    # ---------------- request API ----------------
+    def handle_request(self, request: dict) -> Optional[dict]:
+        """The reference's dict request protocol: dispatch on
+        ``request["type"]``. ``start_session`` takes ``frames`` or a
+        ``resource_path`` (a video or a directory of frames); ``add_prompt``
+        takes the protocol's ``bounding_boxes`` in normalized 0-1 xywh,
+        converted here to the pixel xyxy of :meth:`add_prompt`."""
+        rt = request["type"]
+        if rt == "start_session":
+            if "frames" in request:
+                frames = np.asarray(request["frames"])
+            else:
+                from skix_torch.io.video import read_video
+
+                frames = read_video(request["resource_path"])
+            return {"session_id": self.start_session(
+                frames, session_id=request.get("session_id"))}
+        if rt == "add_prompt":
+            boxes = request.get("bounding_boxes")
+            if boxes is not None:
+                b = np.asarray(boxes, np.float32)
+                H, W = self.sessions[request["session_id"]].frames.shape[1:3]
+                b = b * np.asarray([W, H, W, H], np.float32)
+                boxes = np.concatenate([b[:, :2], b[:, :2] + b[:, 2:]], -1)
+            fi = request.get("frame_index", 0)
+            self.add_prompt(request["session_id"], text=request.get("text"),
+                            frame_idx=fi, points=request.get("points"),
+                            point_labels=request.get("point_labels"),
+                            boxes_xyxy=boxes,
+                            box_labels=request.get("bounding_box_labels"))
+            return {"frame_index": fi}
+        if rt == "remove_object":
+            self.remove_object(request["session_id"], request["obj_id"])
+            return None
+        if rt == "reset_session":
+            self.reset_session(request["session_id"])
+            return None
+        if rt == "close_session":
+            self.close_session(request["session_id"])
+            return None
+        raise RuntimeError(f"invalid request type: {rt}")
+
+    def handle_stream_request(self, request: dict) -> Iterator[dict]:
+        """The protocol's streaming half; its direction defaults to
+        "both", as the reference's does."""
+        if request["type"] != "propagate_in_video":
+            raise RuntimeError(f"invalid request type: {request['type']}")
+        yield from self.propagate_in_video(
+            request["session_id"], request.get("text"),
+            start_frame_idx=request.get("start_frame_index"),
+            max_frame_num_to_track=request.get("max_frame_num_to_track"),
+            propagation_direction=request.get("propagation_direction",
+                                              "both"))
 
     def start_session(self, frames: np.ndarray, session_id=None):
         if session_id is None:
@@ -106,14 +172,17 @@ class VideoPredictor:
         """A text prompt: the CLIP tower's resized token memory and pad
         mask; on the Sam3Detector without one (smoke mode) the hash
         embedding tiled to 4 tokens; on the compact path the text
-        encoder's vector or the hash embedding."""
+        encoder's vector or the hash embedding. Points ``(P, 2)`` and
+        ``boxes_xyxy`` ``(N, 4)`` in frame pixels (labels 1 = positive,
+        the default, 0 = negative; Sam3Detector only) fill the free slots
+        of ``frame_idx``: repeated calls accumulate, and prompts past
+        ``max_points``/``max_boxes`` are dropped with a warning."""
+        s = self.sessions[session_id]
         if points is not None or boxes_xyxy is not None:
-            raise NotImplementedError(
-                "geometric prompts come with ROADMAP Queue 1 item 11b (the "
-                "geometry prompts)")
+            self._add_geometry(s, int(frame_idx), points, point_labels,
+                               boxes_xyxy, box_labels)
         if text is None:
             return
-        s = self.sessions[session_id]
         if self.clip is not None:
             tokenizer, encoder = self.clip
             dev = next(encoder.parameters()).device
@@ -145,6 +214,50 @@ class VideoPredictor:
             s.prompts[text] = embed_text_prompt(text,
                                                 self.detector.prompt_dim)
 
+    def _add_geometry(self, s: _Session, frame_idx: int, points,
+                      point_labels, boxes_xyxy, box_labels) -> None:
+        if not self.is_sam3:
+            raise ValueError("geometric prompts need the Sam3Detector path")
+        det = self.detector
+        if self.geometry_encoder is None:
+            self.geometry_encoder = (
+                det.geometry_encoder if det.geometry_encoder is not None
+                else det.make_geometry_encoder(
+                    torch.Generator().manual_seed(self.rng_seed)))
+        H, W = s.frames.shape[1:3]
+        Np, Nb = det.max_points, det.max_boxes
+        g = s.geometry.get(frame_idx)
+        if g is None:
+            g = geometry_slots(Np, Nb)
+
+        def take(kind, arr, labels, cap):
+            lab = (np.asarray(labels, np.int32).reshape(-1)
+                   if labels is not None else np.ones(len(arr), np.int32))
+            o = int(g[f"{kind}_valid"].sum())
+            k = min(len(arr), cap - o)
+            if k < len(arr):
+                log.warning("frame %d %s slots full (%d/%d): dropping %d %s "
+                            "prompt(s); reset_session to start over",
+                            frame_idx, kind, o, cap, len(arr) - k, kind)
+            g[f"{kind}_labels"][o:o + k] = lab[:k]
+            g[f"{kind}_valid"][o:o + k] = True
+            return o, k
+
+        if points is not None:
+            pts = np.asarray(points, np.float32).reshape(-1, 2)
+            o, k = take("point", pts, point_labels, Np)
+            g["points"][o:o + k] = pts[:k] / [W, H]
+        if boxes_xyxy is not None:
+            bx = np.asarray(boxes_xyxy, np.float32).reshape(-1, 4)
+            o, k = take("box", bx, box_labels, Nb)
+            # normalized cxcywh, the geometry encoder's convention
+            cx = (bx[:k, 0] + bx[:k, 2]) / 2 / W
+            cy = (bx[:k, 1] + bx[:k, 3]) / 2 / H
+            bw = (bx[:k, 2] - bx[:k, 0]) / W
+            bh = (bx[:k, 3] - bx[:k, 1]) / H
+            g["boxes"][o:o + k] = np.stack([cx, cy, bw, bh], -1)
+        s.geometry[frame_idx] = g
+
     def remove_object(self, session_id: int, obj_id: int) -> None:
         self.sessions[session_id].removed_ids.add(int(obj_id))
 
@@ -153,6 +266,7 @@ class VideoPredictor:
         s.prompts.clear()
         s.prompt_pads.clear()
         s.removed_ids.clear()
+        s.geometry.clear()
 
     def close_session(self, session_id: int) -> None:
         self.sessions.pop(session_id, None)
@@ -174,7 +288,14 @@ class VideoPredictor:
         frames = np.ascontiguousarray(s.frames[np.asarray(idx_map)])
         if text_pad is not None:
             text_pad = torch.as_tensor(text_pad, device=mdl.device)
+        geometry_by_frame = {
+            local_t: {**{k: torch.as_tensor(v, device=mdl.device)[None]
+                         for k, v in g.items()},
+                      "geometry_encoder": self.geometry_encoder}
+            for local_t, gt in enumerate(idx_map)
+            if (g := s.geometry.get(int(gt))) is not None}
         stream = mdl.propagate(frames, torch.as_tensor(prompt),
+                               geometry_by_frame=geometry_by_frame,
                                include_lowres_logits=False,
                                start_frame=int(idx_map[0]),
                                text_pad=text_pad)
@@ -199,12 +320,16 @@ class VideoPredictor:
                            ) -> Iterator[dict]:
         """Yield per-frame ``{frame_index, outputs}`` with per-object
         ``mask`` arrays. Forward yields ``[s0, min(T, s0+max))``, backward
-        walks ``s0 → 0``; "both" does both (the start frame twice)."""
+        walks ``s0 → 0``; "both" does both (the start frame twice). Without
+        ``prompt_text`` the latest text prompt is the active one; geometry
+        alone prompts ``"visual"``."""
         s = self.sessions[session_id]
         if propagation_direction not in ("both", "forward", "backward"):
             raise ValueError(
                 f"invalid propagation direction: {propagation_direction}")
         if prompt_text is None:
+            if not s.prompts and s.geometry:
+                self.add_prompt(session_id, "visual")
             if not s.prompts:
                 raise ValueError("no prompt added to session")
             prompt_text = next(reversed(s.prompts))
@@ -228,15 +353,17 @@ class VideoPredictor:
                 yield from self._propagate_boxes(s, prompt_text, idx_map, pad)
 
     @torch.no_grad()
-    def _detect_batch(self, images, prompt, text_pad=None):
+    def _detect_batch(self, images, prompt, geometry=None, text_pad=None):
         """``images (B, size, size, 3)`` → (boxes xyxy in detector pixels,
-        scores), each ``(B, Q, ...)``."""
+        scores), each ``(B, Q, ...)``; ``geometry``: the batch's slots."""
         if not self.is_sam3:
             det = self.detector(images, prompt)
             return det.boxes_xyxy, det.scores
         if text_pad is not None:
             text_pad = text_pad[None].expand(images.shape[0], -1)
-        det = self.detector(images, prompt, text_pad)
+        det = self.detector(images, prompt, text_pad,
+                            geometry_encoder=self.geometry_encoder,
+                            **(geometry or {}))
         cx, cy, w, h = det.boxes_cxcywh.unbind(-1)
         size = self.detector.img_size
         return torch.stack([(cx - w / 2) * size, (cy - h / 2) * size,
@@ -264,6 +391,7 @@ class VideoPredictor:
         state = init_tracker_state(self.cfg, dev)
         scale = torch.tensor([W / size, H / size] * 2, dtype=torch.float32,
                              device=dev)
+        use_geo = self.is_sam3 and bool(s.geometry)
         keys = ("active", "confirmed", "bbox", "score", "obj_id",
                 "keep_alive")
         for start in range(0, T, B):
@@ -276,8 +404,22 @@ class VideoPredictor:
                 if n < B:
                     imgs = torch.nn.functional.pad(
                         imgs, (0, 0, 0, 0, 0, 0, 0, B - n))
+                geometry = None
+                if use_geo:
+                    # every frame of the batch has slots, all invalid on
+                    # frames without a prompt
+                    gb = geometry_slots(self.detector.max_points,
+                                        self.detector.max_boxes, (B,))
+                    for i in range(n):
+                        g = s.geometry.get(int(idx_map[start + i]))
+                        if g is not None:
+                            for k in gb:
+                                gb[k][i] = g[k]
+                    geometry = {k: torch.as_tensor(v, device=dev)
+                                for k, v in gb.items()}
                 boxes, scores = self._detect_batch(
-                    imgs, prompt.expand(B, *prompt.shape[1:]), text_pad)
+                    imgs, prompt.expand(B, *prompt.shape[1:]), geometry,
+                    text_pad)
                 boxes = boxes[:n] * scale
                 scores = scores[:n]
             with self._span("tracker"):
@@ -297,3 +439,10 @@ class VideoPredictor:
                     out_np["active"] = out_np["active"] & ~drop
                 yield {"frame_index": int(idx_map[start + i]),
                        "outputs": out_np}
+
+    # ---------------- stats ----------------
+    def session_stats(self, session_id: int) -> dict:
+        s = self.sessions[session_id]
+        return {"frames": int(len(s.frames)), "prompts": sorted(s.prompts),
+                "removed_ids": sorted(s.removed_ids),
+                "geometry_frames": sorted(s.geometry)}

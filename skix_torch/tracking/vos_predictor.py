@@ -1,9 +1,11 @@
-"""SAM2-style interactive video-object-segmentation predictor, prompted by
-masks.
+"""SAM2-style interactive video-object-segmentation predictor.
 
 Port of ``skix/tracking/vos_predictor.py`` (the reference's
-``sam3_tracking_predictor.py``): ``add_new_mask`` (:342) pins an object's
-mask on any frame as conditioning memory; ``propagate_in_video`` streams
+``sam3_tracking_predictor.py``): ``add_new_points_or_box`` (:179: a box
+becomes two corner points with labels 2/3 ahead of the clicks; correction
+clicks decode against the frame's existing mask) and ``add_new_mask``
+(:342) pin an object's mask on any frame as conditioning memory;
+``propagate_in_video`` streams
 each object's masks forward or in reverse with the memory-conditioned
 tracker; ``clear_all_points_in_frame`` (:906), ``clear_all_points_in_video``
 (:978) and ``remove_object`` (:1181) complete the session. The memory bank
@@ -16,9 +18,12 @@ The tracker's weights decide the device.
 Each step attends over its bank with the slot scan (``attend_decode`` with
 ``dense=False``, skix's default there), plain torch: no kernel launch.
 
-Clicks and boxes (``add_new_points_or_box``) need skix's SAM prompt head,
-which comes with a later slice: without a segmenter the method raises
-skix's ``RuntimeError``, and passing one raises ``NotImplementedError``.
+Clicks and boxes need an :class:`skix_torch.tracking.sam_prompt_encoder.
+InteractiveSegmenter` (``segmenter=``, its weights on the tracker's
+device): each prompted frame is encoded once at the segmenter's size
+(cached in the state's ``seg_feats``), and the selected mask logits,
+resized to the tracker's grid, become the conditioning memory. Without a
+segmenter the method raises skix's ``RuntimeError``.
 """
 
 from __future__ import annotations
@@ -35,26 +40,25 @@ from skix_torch.utils.image import resize
 
 log = logging.getLogger(__name__)
 
-_SEGMENTER_SLICE = ("ROADMAP Queue 1 item 11b (the SAM prompt encoder and "
-                    "decoder)")
+_TOP_LEFT, _BOTTOM_RIGHT = 2, 3      # SAM box-corner point labels
 
 
 class InteractiveVideoPredictor:
     """Interactive VOS session driver (see the module docstring)."""
 
     def __init__(self, tracker, segmenter=None, max_cond_frames: int = 2,
-                 num_recent: int = 2, max_cond_slots: int = 16):
-        if segmenter is not None:
-            raise NotImplementedError(
-                f"the interactive segmenter comes with {_SEGMENTER_SLICE}")
+                 num_recent: int = 2, max_points: int = 8,
+                 max_cond_slots: int = 16):
         if max_cond_frames < 2:
             # select_closest_cond_frames needs 2 or more: fail here, not
             # inside the propagation loop
             raise ValueError("max_cond_frames must be >= 2 "
                              f"(got {max_cond_frames})")
         self.tracker = tracker
+        self.segmenter = segmenter
         self.max_cond_frames = int(max_cond_frames)
         self.num_recent = int(num_recent)
+        self.max_points = int(max_points)
         self.max_cond_slots = int(max_cond_slots)
         self.device = next(tracker.parameters()).device
 
@@ -70,6 +74,7 @@ class InteractiveVideoPredictor:
             "num_frames": f.shape[0],
             "grid_hw": self.tracker.encoder.feature_hw(*f.shape[1:3]),
             "feats": {},            # frame_idx -> (1, gh, gw, C)
+            "seg_feats": {},        # frame_idx -> segmenter embedding
             "objects": {},          # obj_id -> per-object dict
             "last_cond_selected": None,   # the last bank's cond frames
         }
@@ -112,14 +117,90 @@ class InteractiveVideoPredictor:
         obj["points"].pop(frame_idx, None)
         return grid
 
+    @torch.no_grad()
     def add_new_points_or_box(self, state: dict, frame_idx: int,
                               obj_id: int, points=None, labels=None,
                               box=None, clear_old_points: bool = True,
                               rel_coordinates: bool = False):
-        """Click and box prompts need the interactive segmenter."""
-        raise RuntimeError(
-            "point/box prompts need an InteractiveSegmenter; use "
-            "add_new_mask or construct with segmenter=")
+        """Clicks ``points (P, 2)`` with ``labels (P,)`` (1 = positive, 0 =
+        negative) and/or a ``box`` (xyxy), in frame pixels (or relative
+        with ``rel_coordinates``): the segmenter decodes this frame's mask
+        (against the frame's existing mask, when it has one), which is
+        pinned as conditioning memory. A box goes ahead of the clicks as
+        two corner points, so it needs ``clear_old_points``; past
+        ``max_points`` the first prompts stay (the corners among them).
+        Returns the grid logits ``(gh, gw)``."""
+        if self.segmenter is None:
+            raise RuntimeError(
+                "point/box prompts need an InteractiveSegmenter; use "
+                "add_new_mask or construct with segmenter=")
+        if (points is None) != (labels is None):
+            raise ValueError("points and labels must be provided together")
+        if points is None and box is None:
+            raise ValueError(
+                "at least one of points or box must be provided as input")
+        obj = self._obj(state, obj_id)
+        H, W = state["frames"].shape[1:3]
+        s = self.segmenter.img_size
+        pts = (np.zeros((0, 2), np.float32) if points is None
+               else np.asarray(points, np.float32).reshape(-1, 2))
+        lab = (np.zeros((0,), np.int32) if labels is None
+               else np.asarray(labels, np.int32).reshape(-1))
+        if rel_coordinates:
+            pts = pts * np.asarray([W, H], np.float32)
+            if box is not None:
+                box = np.asarray(box, np.float32) * np.asarray(
+                    [W, H, W, H], np.float32)
+        if box is not None:
+            if not clear_old_points:
+                raise ValueError(
+                    "cannot add box without clearing old points, since "
+                    "box prompt must be provided before any point prompt "
+                    "(please use clear_old_points=True instead)")
+            pts = np.concatenate(
+                [np.asarray(box, np.float32).reshape(2, 2), pts], axis=0)
+            lab = np.concatenate(
+                [np.asarray([_TOP_LEFT, _BOTTOM_RIGHT], np.int32), lab])
+        if not clear_old_points and frame_idx in obj["points"]:
+            old_p, old_l = obj["points"][frame_idx]
+            pts = np.concatenate([old_p, pts], axis=0)
+            lab = np.concatenate([old_l, lab], axis=0)
+        obj["points"][frame_idx] = (pts, lab)
+
+        # fixed prompt slots (−1 pads), the head kept: a lone trailing
+        # corner would give the SAM head half a box
+        P = self.max_points
+        pad_p = np.zeros((1, P, 2), np.float32)
+        pad_l = np.full((1, P), -1, np.int32)
+        n = min(len(lab), P)
+        if n < len(lab):
+            log.warning("prompt slots full (%d clicks > %d): keeping the "
+                        "FIRST %d — box corner points (labels 2/3) sit at "
+                        "the front and must survive truncation", len(lab),
+                        P, n)
+        pad_p[0, :n] = pts[:n] * np.asarray([s / W, s / H], np.float32)
+        pad_l[0, :n] = lab[:n]
+
+        if frame_idx not in state["seg_feats"]:
+            img = torch.as_tensor(state["frames"][frame_idx],
+                                  dtype=torch.float32, device=self.device)
+            state["seg_feats"][frame_idx] = self.segmenter.encode_image(
+                resize(img, (s, s, 3))[None])
+        feats = state["seg_feats"][frame_idx]
+        # correction clicks decode against the frame's existing mask
+        mask_in = None
+        prev = obj["masks"].get(frame_idx, obj["cond_logits"].get(frame_idx))
+        if prev is not None:
+            fh, fw = feats.shape[1], feats.shape[2]
+            mask_in = resize(prev, (4 * fh, 4 * fw))[None, :, :, None]
+        out = self.segmenter.predict_from_embedding(
+            feats, torch.as_tensor(pad_p, device=self.device),
+            torch.as_tensor(pad_l, device=self.device), None, mask_in)
+        grid = resize(out.mask_logits[0], state["grid_hw"])
+        obj["cond"][frame_idx] = self._encode_memory(state, frame_idx, grid)
+        obj["cond_logits"][frame_idx] = grid
+        obj["masks"][frame_idx] = grid
+        return grid
 
     # ----------------------------------------------------- maintenance
 

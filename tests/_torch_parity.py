@@ -137,8 +137,9 @@ def close_scaled(got, want, tol):
     """``got`` within ``tol`` of ``want``, relative to ``want``'s largest
     element where that exceeds 1 (pixels, cm-scale rig sums)."""
     want = np.asarray(want, np.float32)
+    scale = max(1.0, float(np.abs(want).max(initial=0.0)))
     np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=0,
-                               atol=tol * max(1.0, float(np.abs(want).max())))
+                               atol=tol * scale)
 
 
 def sam3d_body_pair(rng, **kw):
@@ -254,4 +255,46 @@ def jit0(fn, static_argnames=()):
             compiled[key] = jitted.lower(*args, **kwargs, **dict(
                 static)).compile(compiler_options=_CHEAP)
         return compiled[key](*args, **kwargs)
+    return call
+
+
+def graft_geometry(det_vars, d_model: int = 64, max_points: int = 8,
+                   max_boxes: int = 4, seed: int = 0):
+    """skix's Sam3Detector ``det_vars`` (nested, ``{"params": ...}``) with a
+    ``geometry_encoder`` branch drawn by skix's ``GeometryPromptEncoder``
+    init (``PRNGKey(seed)``) where it has none: the branch skix's
+    ``Sam3Processor`` and ``VideoPredictor`` graft onto a tree without it.
+    Both packages are then given the same tree."""
+    import jax.numpy as jnp
+
+    from skix.tracking.sam3_detector import GeometryPromptEncoder
+
+    params = dict(det_vars["params"])
+    if "geometry_encoder" not in params:
+        enc = GeometryPromptEncoder(d_model, max_points, max_boxes)
+        z = jnp.zeros
+        params["geometry_encoder"] = jax.jit(
+            enc.init, compiler_options=_CHEAP)(
+            jax.random.PRNGKey(seed), z((1, 2, 2, d_model)),
+            z((1, max_points, 2)), z((1, max_points), jnp.int32),
+            z((1, max_points), bool), z((1, max_boxes, 4)),
+            z((1, max_boxes), jnp.int32), z((1, max_boxes), bool))["params"]
+    return {**det_vars, "params": params}
+
+
+def cheap_jit(jitted, static_argnums=()):
+    """A skix function decorated with ``jax.jit`` (static
+    ``static_argnums``), compiled once per signature at XLA's level 0
+    (``_CHEAP``) where it is called at top level; inside another jitted
+    program (its arguments are tracers) its plain body is traced into
+    that program, since only a top-level jit takes compiler options."""
+    raw = jitted.__wrapped__
+    cheap = jax.jit(raw, static_argnums=static_argnums,
+                    compiler_options=_CHEAP)
+
+    def call(*args, **kwargs):
+        if any(isinstance(x, jax.core.Tracer)
+               for x in jax.tree_util.tree_leaves((args, kwargs))):
+            return raw(*args, **kwargs)
+        return cheap(*args, **kwargs)
     return call

@@ -209,15 +209,18 @@ def test_sam3_detector_random_init_is_finite():
 
 
 def test_sam3_detector_refuses_training_and_geometry(detector_pair):
-    """Geometry prompts are not ported: they raise, in training mode too.
-    The training outputs (DAC, aux scores) are ported and checked in
-    tests/test_torch_train_detector.py; without a text prompt a detector
-    built without the null_prompt token refuses the call."""
+    """A detector built without the geometry encoder (skix's tree had no
+    such branch) refuses point and box prompts, in training mode too, with
+    a ValueError naming the flag; the geometric prompts themselves are
+    checked in tests/test_torch_geometry_prompts.py. The training outputs
+    (DAC, aux scores) are checked in tests/test_torch_train_detector.py;
+    without a text prompt a detector built without the null_prompt token
+    refuses the call."""
     _, _, port = detector_pair
     img, text = torch.zeros(1, 112, 112, 3), torch.zeros(1, 4, 64)
-    with pytest.raises(NotImplementedError, match="geometry"):
+    with pytest.raises(ValueError, match="geometry=True"):
         port(img, text, apply_dac=True, points=torch.zeros(1, 8, 2))
-    with pytest.raises(NotImplementedError, match="geometry"):
-        port(img, text, points=torch.zeros(1, 8, 2))
+    with pytest.raises(ValueError, match="geometry=True"):
+        port(img, text, boxes=torch.zeros(1, 4, 4))
     with pytest.raises(ValueError, match="null_prompt"):
         port(img)

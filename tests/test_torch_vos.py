@@ -22,6 +22,7 @@ top-level applies compile at level 0 (``_torch_parity._CHEAP``), and
 
 import functools
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -286,5 +287,16 @@ def test_predictor_errors_match_skix(trackers):
             p.add_new_points_or_box(s, 0, 1, points=[[3, 4]], labels=[1])
         with pytest.raises(KeyError):
             p.remove_object(s, 5, strict=True)
-    with pytest.raises(NotImplementedError, match="11b"):
-        InteractiveVideoPredictor(port, segmenter=object())
+    # with a segmenter, skix's prompt checks come before any decode
+    seg = types.SimpleNamespace(img_size=64)
+    sp = SkixPredictor(skix_trk, trk_vars, segmenter=seg)
+    pp = InteractiveVideoPredictor(port, segmenter=seg)
+    for p in (sp, pp):
+        s = p.init_state(frames)
+        with pytest.raises(ValueError, match="together"):
+            p.add_new_points_or_box(s, 0, 1, points=[[3, 4]])
+        with pytest.raises(ValueError, match="at least one"):
+            p.add_new_points_or_box(s, 0, 1)
+        with pytest.raises(ValueError, match="clearing old points"):
+            p.add_new_points_or_box(s, 0, 1, box=[1, 1, 9, 9],
+                                    clear_old_points=False)
