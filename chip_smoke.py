@@ -234,6 +234,27 @@ Phases, one line each (the last line is the JSON verdict):
               the VOS predictor with the ViT-Det segmenter at 1008 px),
               K1 and K2 launches held, times, peak memory, one profile of
               the processor and of the session;
+9g. agent     the SAM3 agent: agent_ref (agent_inference through
+              Sam3AgentClient on tests/fixtures/tracker_tiny224.npz's
+              detector, card against CPU: message texts, keep sets,
+              scores, mask pixels, the final selection), then agent at
+              full width (the full-size detector, 4 frames of 1080p, a
+              ScriptedLLM a frame: segment, examine with alternating
+              verdicts, a repeated prompt, a second prompt, select),
+              10 K1 and 28 K2 launches a segment call held, ms a segment
+              call (processor and host), the 1080p renders, ms a frame,
+              one frame profiled;
+9h. train_loop the library training parts: train_loop_ref (the Trainer on
+              the tiny detector, 4 micro-steps at accumulation 2, card
+              against CPU, and resumes from micro-steps 2 and 3 against
+              the whole run; the semi-supervised step; both association
+              losses), then train_loop at full size (the Trainer on the
+              full-size detector at configs/train_detector.yaml, batch 2 ×
+              accumulation 2, construct_optimizer's tx: a [train] step's
+              launches a micro-step, ms a micro-step and an optimizer
+              step, peak memory, one optimizer step profiled; the
+              semi-supervised step at 1024 channels, rf 243, batch 128;
+              YTVIS clips of 1080p and both association losses);
 10. kernels   one JSON object per kernel (and K1/K2 mode) of the paths, its
               rope styles under "modes", then one per TPU probe B1-B7 (K2's
               variants, launched on no path) with its variants' rows.
@@ -242,8 +263,9 @@ Phases, one line each (the last line is the JSON verdict):
 phase groups alone (GROUPS), with no kernels line and no verdict;
 ``--only tools`` runs the post-run tools' phases, which make their own
 inputs, ``--only vos`` the VOS phases, which read the committed
-tracker fixture and make their clips, and ``--only prompts`` the prompt
-phases.
+tracker fixture and make their clips, ``--only prompts`` the prompt
+phases, ``--only agent`` the agent's and ``--only train_loop`` the
+library training loop's.
 
 cuDNN's TF32 is turned off in phase 4 (float32 convolutions, to compare
 card and CPU) and stays off for the phases after it; matmuls keep
@@ -7116,16 +7138,784 @@ def prompts_phase():
     return total, by_style
 
 
+# --------------------------------------------------------------------------
+# phases 9g, 9h: the SAM3 agent, and the library training loop
+# --------------------------------------------------------------------------
+# agent: agent_inference through Sam3AgentClient over Sam3Processor on the
+# full-size detector (1008 px, f32) as [prompts] sets it up, on 4 frames of
+# 1080p; a ScriptedLLM a frame: segment_phrase("skier"), examine_each_mask
+# (the verifier alternates Accept and Reject), "skier" again (the
+# duplicate-prompt branch), segment_phrase("person"),
+# select_masks_and_return([1, 2]). Each prompt runs at the threshold that
+# kept AGENT_KEPT queries of it in the warm-up. agent_ref holds the card to
+# the CPU on the trained 224 px fixture detector
+AGENT_FRAMES, AGENT_HW, AGENT_KEPT = 4, (1080, 1920), PROMPTS_KEPT
+AGENT_PER_SEGMENT = PROMPTS_PER_FORWARD
+AGENT_REF_LIMITS = {"scores": 1e-4, "mask_pixels": 1e-3}
+# train_loop: the Trainer on the full-size detector's loss at
+# configs/train_detector.yaml with batch 2 × grad_accum_steps 2 (the
+# yaml's effective batch of 4), tx = construct_optimizer's simple scheme;
+# one optimizer step of warm-up, TRAIN_LOOP_STEPS measured; per micro-step
+# the launches of a [train] step. The semi-supervised step at the
+# published lifter width (make_pose_and_traj_models' defaults) and
+# configs/train_lifter.yaml's batch; YTVIS clips of 1080p and both
+# association losses on the card
+TRAIN_LOOP_BATCH, TRAIN_LOOP_ACCUM, TRAIN_LOOP_STEPS = 2, 2, 2
+SEMI_BATCH, SEMI_STEPS = 128, 3
+CLIPS_T, CLIPS_HW, CLIPS_OBJECTS = 8, (1080, 1920), 3
+TRAIN_LOOP_REF_LIMITS = {"loss_rel": 1e-5, "params": 1e-4, "assoc": 1e-5}
+
+
+def _agent_tool(name, **params) -> str:
+    return f"<tool>{json.dumps({'name': name, 'parameters': params})}</tool>"
+
+
+def agent_script(n_skier: int) -> list:
+    """One frame's ScriptedLLM responses when "skier" gives ``n_skier``
+    masks: the verifier accepts the even ones."""
+    return ([_agent_tool("segment_phrase", text_prompt="skier"),
+             _agent_tool("examine_each_mask")]
+            + ["<verdict>Accept</verdict>" if i % 2 == 0
+               else "<verdict>Reject</verdict>" for i in range(n_skier)]
+            + [_agent_tool("segment_phrase", text_prompt="skier"),
+               _agent_tool("segment_phrase", text_prompt="person"),
+               _agent_tool("select_masks_and_return",
+                           final_answer_masks=[1, 2])])
+
+
+class _TimedProcessor:
+    """A Sam3Processor whose set_image and set_text_prompt are timed (the
+    results cross to the host inside set_text_prompt: synchronized)."""
+
+    def __init__(self, proc):
+        self.proc, self.ms = proc, 0.0
+
+    def set_image(self, image):
+        t = time.perf_counter()
+        state = self.proc.set_image(image)
+        self.ms += (time.perf_counter() - t) * 1e3
+        return state
+
+    def set_text_prompt(self, prompt, state):
+        t = time.perf_counter()
+        out = self.proc.set_text_prompt(prompt, state)
+        self.ms += (time.perf_counter() - t) * 1e3
+        return out
+
+
+class AgentSegmenter:
+    """The agent's segmenter: ``Sam3AgentClient`` at the threshold of
+    (``frame``, prompt); each call's outputs, processor ms, total ms and
+    launches recorded."""
+
+    def __init__(self, proc, thresholds):
+        from skix_torch.agent import Sam3AgentClient
+
+        self.proc, self.thresholds, self.frame = proc, thresholds, 0
+        self.timed = _TimedProcessor(proc)
+        self.client = Sam3AgentClient(self.timed, min_mask_area=1)
+        self.calls = []
+
+    def __call__(self, image, prompt):
+        from skix_torch.ops import attention as A
+
+        self.proc.set_confidence_threshold(self.thresholds[self.frame,
+                                                           prompt])
+        before, self.timed.ms = dict(A.LAUNCHES), 0.0
+        t = time.perf_counter()
+        out = self.client(image, prompt)
+        ms = (time.perf_counter() - t) * 1e3
+        launches = {k: v - before.get(k, 0) for k, v in A.LAUNCHES.items()
+                    if v != before.get(k, 0)}
+        self.calls.append({"frame": self.frame, "prompt": prompt, "out": out,
+                           "processor_ms": self.timed.ms, "ms": ms,
+                           "launches": launches})
+        return out
+
+
+def _texts(messages) -> list:
+    """Every text of a message history, in order (images left out)."""
+    out = []
+    for m in messages:
+        c = m.get("content")
+        for x in (c if isinstance(c, list) else [c]):
+            if isinstance(x, str) or x.get("type") == "text":
+                out.append(x if isinstance(x, str) else x["text"])
+    return out
+
+
+def agent_thresholds(proc, frames, keep: int, between: bool = False):
+    """Per (frame index, prompt) the threshold that keeps ``keep`` queries
+    (``between``: keep − 2 to keep + 2 of them, midway across the widest
+    gap between two neighbouring scores there); with the least distance
+    from a threshold to a score."""
+    import numpy as np
+
+    out, margin = {}, np.inf
+    for i, f in enumerate(frames):
+        state = proc.set_image(f)
+        for p in ("skier", "person"):
+            s = np.sort(proc.set_text_prompt(p, state)["all_scores"])
+            if between:
+                k = max(range(keep - 2, keep + 3),
+                        key=lambda k: s[-k] - s[-k - 1])
+                out[i, p] = float(s[-k] + s[-k - 1]) / 2
+            else:
+                out[i, p] = float(s[-keep])
+            margin = min(margin, float(np.min(np.abs(s - out[i, p]))))
+    return out, margin
+
+
+def agent_reference_phase():
+    """agent_inference card against CPU on the trained 224 px fixture
+    detector (a seeded geometry branch, as prompts_ref): one script a
+    device, the CPU's thresholds (midway between two scores); the same
+    message texts and seen snapshots, the same masks kept at every call,
+    scores and boxes within 1e-4 of scale, ≤ 1e-3 of mask pixels
+    different, the same final selection."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from skix_torch.agent import ScriptedLLM, agent_inference
+    from skix_torch.ops import attention as A
+    from skix_torch.tracking.fixture import load_tracker_fixture
+    from skix_torch.tracking.image_processor import Sam3Processor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mtf = tracker_world()
+    mtf.set_world_size(224)
+    det, _ = load_tracker_fixture(VOS_FIXTURE, device="cpu")
+    det.geometry_encoder = det.make_geometry_encoder(
+        torch.Generator().manual_seed(17))
+    dets = {"cpu": det.eval(), "cuda": copy.deepcopy(det).to("cuda").eval()}
+    images = [(np.pad(mtf.synth_scene(seed, n_obj=2)[0],
+                      ((0, 0), (0, 96), (0, 0))) * 255).astype(np.uint8)
+              for seed in (7, 8)]
+    procs = {d: Sam3Processor(m) for d, m in dets.items()}
+    thresholds, margin = agent_thresholds(procs["cpu"], images, 6,
+                                          between=True)
+    segs = {d: AgentSegmenter(p, thresholds) for d, p in procs.items()}
+    n_skier = []
+    for i, im in enumerate(images):
+        segs["cpu"].frame = i
+        n_skier.append(len(segs["cpu"](im, "skier")["pred_masks"]))
+    segs["cpu"].calls.clear()
+    runs = {}
+    reset_counts()
+    for d in ("cpu", "cuda"):
+        runs[d] = []
+        for i, im in enumerate(images):
+            segs[d].frame = i
+            llm = ScriptedLLM(agent_script(n_skier[i]))
+            msgs, final, rendered = agent_inference(im, "the skier", llm,
+                                                    segs[d])
+            runs[d].append((msgs, final, rendered, llm))
+    launches = dict(A.LAUNCHES)
+    bad, errs, px = [], {"scores": 0.0, "boxes": 0.0}, []
+    for (mc, fc, rc, lc), (mg, fg, rg, lg) in zip(runs["cpu"], runs["cuda"]):
+        if _texts(mg) != _texts(mc):
+            bad.append("message texts differ")
+        if [_texts(s) for s in lg.seen] != [_texts(s) for s in lc.seen]:
+            bad.append("the LLM's seen snapshots differ")
+        if len(fg["pred_masks"]) != len(fc["pred_masks"]):
+            bad.append("final selections differ")
+        if rg.shape != rc.shape:
+            bad.append("rendered shapes differ")
+        px.append(float(np.mean(rg != rc)))
+    for cc, cg in zip(segs["cpu"].calls, segs["cuda"].calls):
+        oc, og = cc["out"], cg["out"]
+        if len(og["pred_scores"]) != len(oc["pred_scores"]):
+            bad.append(f"keep sets differ ({cc['prompt']})")
+            continue
+        if oc["pred_scores"]:
+            errs["scores"] = max(errs["scores"], scaled_err(
+                og["pred_scores"], oc["pred_scores"]))
+            errs["boxes"] = max(errs["boxes"], scaled_err(
+                og["pred_boxes"], oc["pred_boxes"]))
+            px.append(float(np.mean(np.stack(og["pred_masks"])
+                                    != np.stack(oc["pred_masks"]))))
+    calls = len(segs["cuda"].calls)
+    per_call = [c["launches"] for c in segs["cuda"].calls]
+    say("agent_ref", frames=len(images), segment_calls=calls,
+        n_skier=n_skier, kept=[len(c["out"]["pred_scores"])
+                               for c in segs["cuda"].calls],
+        final=[len(r[1]["pred_masks"]) for r in runs["cuda"]],
+        threshold_margin=margin, score_err=errs["scores"],
+        box_err=errs["boxes"], mask_px_max=max(px),
+        launches=json.dumps(launches).replace(" ", ""),
+        per_call=json.dumps(per_call[0]).replace(" ", ""),
+        s=round(time.perf_counter() - t0, 1))
+    if margin <= 1e-5:
+        bad.append(f"a threshold lies {margin} from a score")
+    if errs["scores"] > AGENT_REF_LIMITS["scores"] or errs["boxes"] > \
+            AGENT_REF_LIMITS["scores"]:
+        bad.append(f"scores/boxes differ by {errs}")
+    if max(px) > AGENT_REF_LIMITS["mask_pixels"]:
+        bad.append(f"{max(px)} of mask pixels differ")
+    if calls != 2 * len(images) or not per_call[0] or any(
+            c != per_call[0] for c in per_call):
+        bad.append(f"{calls} segment calls launching {per_call}")
+    if bad:
+        fail("agent_ref: " + "; ".join(sorted(set(bad))))
+
+
+def agent_phase():
+    """agent_inference at full width: the full-size detector on 4 frames of
+    1080p, a ScriptedLLM a frame (agent_script, its "skier" mask count from
+    the warm-up); every segment call's launches held to AGENT_PER_SEGMENT,
+    the run's to their sum (counts from 0 just before); ms a segment call,
+    split into the processor and the host's post-processing (cv2
+    upsampling, the IoM overlap filter); the 1080p renders; agent_inference
+    wall ms a frame; one frame profiled."""
+    import numpy as np
+    import torch
+
+    from skix_torch.agent import (ScriptedLLM, agent_inference, count_images,
+                                  render_set_of_marks, render_zoom_in)
+    from skix_torch.ops import attention as A
+    from skix_torch.tracking.image_processor import Sam3Processor
+    from skix_torch.tracking.sam3_detector import Sam3Detector
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    with torch.device("meta"):
+        det = Sam3Detector.full_size(geometry=True)
+    det = det.to_empty(device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(0)).eval()
+    frames = shifted_frames(np.random.default_rng(5), AGENT_FRAMES, AGENT_HW)
+    proc = Sam3Processor(det)
+    setup_s = time.perf_counter() - t0
+    # warm-up: the thresholds, then each frame's "skier" mask count
+    thresholds, _ = agent_thresholds(proc, frames, AGENT_KEPT)
+    seg = AgentSegmenter(proc, thresholds)
+    n_skier = []
+    for i, f in enumerate(frames):
+        seg.frame = i
+        n_skier.append(len(seg(f, "skier")["pred_masks"]))
+        seg(f, "person")
+    warm = seg.calls[0]["out"]["pred_masks"]
+    seg.calls.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    frame_ms, finals = [], []
+    for i, f in enumerate(frames):
+        seg.frame = i
+        llm = ScriptedLLM(agent_script(n_skier[i]))
+        t = time.perf_counter()
+        msgs, final, rendered = agent_inference(f, "the skier", llm, seg)
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+        if (llm._i != len(llm.responses) or count_images(msgs) > 2
+                or rendered.shape != f.shape or rendered.dtype != np.uint8
+                or len(final["pred_masks"]) > 2
+                or any(m.shape != AGENT_HW or m.dtype != bool
+                       for m in final["pred_masks"])
+                or not np.isfinite(final["pred_scores"]).all()
+                or not any("You already used 'skier'" in t
+                           for t in _texts(msgs) + sum(
+                               (_texts(s) for s in llm.seen), []))):
+            fail(f"agent: frame {i}'s run is malformed: {len(msgs)} "
+                 f"messages, {len(final['pred_masks'])} final masks")
+        finals.append(len(final["pred_masks"]))
+    torch.cuda.synchronize()
+    launches, by_style = dict(A.LAUNCHES), dict(A.LAUNCHES_BY_STYLE)
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    n = len(seg.calls)
+    expected = {k: n * v for k, v in AGENT_PER_SEGMENT.items()}
+    if n != 2 * AGENT_FRAMES or launches != expected or any(
+            c["launches"] != AGENT_PER_SEGMENT for c in seg.calls):
+        fail(f"agent: {n} segment calls launched {launches}, expected "
+             f"{expected} ({AGENT_PER_SEGMENT} a call)")
+    seg_ms = [c["ms"] for c in seg.calls]
+    proc_ms = [c["processor_ms"] for c in seg.calls]
+    masks = list(warm) if len(warm) else [np.zeros(AGENT_HW, bool)]
+    som_ms, zoom_ms = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        render_set_of_marks(frames[0], masks)
+        som_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        render_zoom_in(frames[0], masks[0])
+        zoom_ms.append((time.perf_counter() - t) * 1e3)
+    seg.frame = 0
+    prof = _profiled(lambda: agent_inference(
+        frames[0], "the skier", ScriptedLLM(agent_script(n_skier[0])), seg))
+    say("agent", frames=AGENT_FRAMES, hw=list(AGENT_HW), segment_calls=n,
+        n_skier=n_skier, kept=[len(c["out"]["pred_masks"]) for c in
+                               seg.calls[:n]],
+        final=finals, thresholds=[round(min(thresholds.values()), 4),
+                                  round(max(thresholds.values()), 4)],
+        ms_per_segment=round(float(np.mean(seg_ms)), 3),
+        processor_ms_per_segment=round(float(np.mean(proc_ms)), 3),
+        host_post_ms_per_segment=round(float(np.mean(seg_ms) - np.mean(
+            proc_ms)), 3),
+        render_set_of_marks_ms=round(float(np.median(som_ms)), 3),
+        render_zoom_in_ms=round(float(np.median(zoom_ms)), 3),
+        som_masks=len(masks),
+        agent_ms_per_frame=round(float(np.mean(frame_ms)), 3),
+        peak_mib=round(peak_mib, 1), setup_s=round(setup_s, 1),
+        profiled_frame_ms=round(prof[0], 3), device_busy_ms=round(prof[1], 2),
+        device_idle_share=round(prof[2], 4), top=prof[3],
+        launches=json.dumps(launches).replace(" ", ""),
+        s=round(time.perf_counter() - t0, 1))
+    del det, proc, seg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, by_style
+
+
+def _loop_trainer(T, cfg, model, size: int, ckpt=None, accum=2,
+                  max_steps=4, every=0, total_steps=10):
+    """skix_torch.models.trainer.Trainer over train_detector's loss on
+    ``model`` (batches: dicts of tensors on its device), tx =
+    construct_optimizer with the yaml's simple scheme (cosine-decayed LR
+    over ``total_steps``, the weight decay on every parameter)."""
+    from skix_torch.convert import flax_path
+    from skix_torch.models.optim import (OptionRule, construct_optimizer,
+                                         cosine_decay_schedule)
+    from skix_torch.models.trainer import Trainer, TrainerConfig
+
+    lr, wd, clip = float(cfg["lr"]), float(cfg["weight_decay"]), float(
+        cfg["grad_clip"])
+    tx = construct_optimizer(
+        [(flax_path(n, p.shape), p) for n, p in model.named_parameters()],
+        {"lr": [OptionRule(cosine_decay_schedule(lr, total_steps, 0.05))],
+         "weight_decay": [OptionRule(wd)]}, clip)
+    loss_fn = T.make_loss_fn(model, cfg, size)
+    return Trainer(lambda m, b, g: loss_fn(b)[0], model, TrainerConfig(
+        lr=lr, weight_decay=wd, grad_clip_norm=clip, grad_accum_steps=accum,
+        max_steps=max_steps, log_every=1, checkpoint_every=every,
+        keep_last=max_steps), ckpt_dir=ckpt, tx=tx)
+
+
+def write_ytvis(root: Path, T: int, hw, n_obj: int, seed: int) -> Path:
+    """A YTVIS file of one video of T frames (smooth noise, written with
+    OpenCV) with ``n_obj`` masklets drifting across it (polygon masks; the
+    last one absent from the middle frames)."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    H, W = hw
+    frames = shifted_frames(rng, T, hw)
+    names, anns = [], []
+    for t in range(T):
+        names.append(f"f{t:03d}.png")
+        cv2.imwrite(str(root / names[-1]), frames[t])
+    for k in range(n_obj):
+        c0 = rng.uniform(0.2, 0.8, 2) * (W, H)
+        v = rng.uniform(-0.01, 0.01, 2) * (W, H)
+        r = rng.uniform(0.05, 0.12) * H
+        boxes, segs = [], []
+        for t in range(T):
+            if k == n_obj - 1 and T // 3 <= t < 2 * T // 3:
+                boxes.append(None)
+                segs.append(None)
+                continue
+            c = c0 + t * v
+            ang = np.linspace(0, 2 * np.pi, 7)[:-1]
+            poly = np.stack([c[0] + r * np.cos(ang), c[1] + r * np.sin(ang)],
+                            -1).round()
+            (x0, y0), (x1, y1) = poly.min(0), poly.max(0)
+            boxes.append([float(x0), float(y0), float(x1 - x0),
+                          float(y1 - y0)])
+            segs.append([poly.ravel().tolist()])
+        anns.append({"id": 10 + k, "video_id": 1, "category_id": 1 + k % 2,
+                     "bboxes": boxes, "segmentations": segs})
+    path = root / "ytvis.json"
+    path.write_text(json.dumps({
+        "videos": [{"id": 1, "file_names": names, "height": H, "width": W}],
+        "annotations": anns, "categories": [{"id": 1}, {"id": 2}]}))
+    return path
+
+
+def assoc_inputs(batch, seed: int):
+    """Detection and track ids from a collated clip batch's slots (frame 1
+    against frame 0, as skix's data test drives the loss) and random
+    logits for both association losses."""
+    import numpy as np
+
+    det = np.where(batch["valid"][:, 1], batch["track_ids"], -1)
+    trk = np.where(batch["valid"][:, 0], batch["track_ids"], -1)
+    B, Q = det.shape
+    rng = np.random.default_rng(seed)
+    return (det.astype(np.int64), trk.astype(np.int64),
+            rng.normal(size=(B, Q, Q + 2)).astype(np.float32),
+            rng.normal(size=(B, Q + 1, Q + 1)).astype(np.float32),
+            rng.normal(size=(B, Q)).astype(np.float32))
+
+
+def assoc_losses(inputs, device):
+    """Both association losses (det2trk with the false-positive class) and
+    their gradients in the logits, on ``device``."""
+    import torch
+
+    from skix_torch.tracking.matcher import (det2trk_assoc_loss,
+                                             tracking_by_detection_assoc_loss)
+
+    det, trk, l1, l2, det_logits = (torch.as_tensor(x, device=device)
+                                    for x in inputs)
+    l1.requires_grad_(True)
+    l2.requires_grad_(True)
+    a = det2trk_assoc_loss(l1, det, trk, 2.0, det_logits=det_logits,
+                           use_fp_loss=True)
+    b, c = tracking_by_detection_assoc_loss(l2, det, trk, 2.0)
+    (a + b + c).backward()
+    return [x.detach().cpu() for x in (a, b, c, l1.grad, l2.grad)]
+
+
+def semi_models(device, channels, filter_widths, seed=0, dropout=None):
+    """The pose and trajectory lifters, seeded, with their optimizer."""
+    from skix_torch.models import semi_supervised as SS
+
+    pose, traj = SS.make_pose_and_traj_models(filter_widths, channels,
+                                              device=device)
+    if dropout is not None:
+        pose.dropout = traj.dropout = dropout
+    return SS.init_semi_state(pose, traj, seed)
+
+
+def semi_batch(rf: int, B: int, seed: int, device):
+    import numpy as np
+    import torch
+
+    r = np.random.default_rng(seed)
+    arrs = ((r.normal(size=(B, rf, 17, 2)) * 0.3),
+            (r.normal(size=(B, 1, 17, 3)) * 0.2),
+            np.tile([0.1, -0.2, 5.0], (B, 1, 1, 1)) + r.normal(
+                size=(B, 1, 1, 3)) * 0.1,
+            (r.normal(size=(B, rf, 17, 2)) * 0.3),
+            np.asarray([1.1, 0.9, 0.02, -0.01, 0.01, -0.02, 0.003, 0.001,
+                        -0.002]))
+    return [torch.as_tensor(np.asarray(a, np.float32), device=device)
+            for a in arrs]
+
+
+def train_loop_reference_phase(tmp: Path):
+    """The Trainer card against CPU: train_detector's tiny preset from the
+    same weights over 4 micro-steps with accumulation 2 (each micro-step's
+    loss, the launches of a train_ref step per micro-step, the parameters
+    after within 1e-4 of scale where the first gradient is above 1e-5,
+    leaving out the rounding-noise leaves as train_ref does); on the card,
+    a save at micro-step 2 (after an update) and at 3 (the accumulator
+    half full), each resumed on other weights, against the uninterrupted
+    run; the semi-supervised step (lifters 32 wide, dropout 0, 2 warm-up
+    and 2 full steps: parameters and BatchNorm statistics within 1e-4 of
+    scale); both association losses and their gradients on collated YTVIS
+    clips within 1e-5."""
+    import numpy as np
+    import torch
+
+    from skix_torch.config import config_from_mapping
+    from skix_torch.data import (CocoDataset, CocoLoader, VideoDataset,
+                                 collate_clips)
+    from skix_torch.models import semi_supervised as SS
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines import train_detector as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    root = tmp / "coco_loop_ref"
+    jp = root / "coco.json"
+    if not jp.exists():
+        write_coco(root, 8, (96, 128), seed=3)
+    body = {"preset": "tiny", "lr": 5e-4, "weight_decay": 1e-4,
+            "grad_clip": 1.0, "dac": True, "loss": {"cls": "iabce"}}
+    cfg = config_from_mapping(body)
+    it = iter(CocoLoader(CocoDataset(jp, image_root=root), batch_size=2,
+                         image_size=112, max_objects=4, seed=0))
+    batches = [next(it) for _ in range(4)]
+    cpu = T.build_detector(cfg, "cpu")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in cpu.state_dict().items()}
+    # the rounding-noise leaves (train_ref's rule) and the gradient floor
+    grads = []
+    for b in (batches[0], {k: np.ascontiguousarray(v[::-1])
+                           for k, v in batches[0].items()}):
+        cpu.zero_grad(set_to_none=True)
+        T.make_loss_fn(cpu, cfg, 112)(T.batch_to(b, "cpu"))[0].backward()
+        grads.append({n: (p.grad.clone() if p.grad is not None
+                          else torch.zeros(p.shape))
+                      for n, p in cpu.named_parameters()})
+    cpu.zero_grad(set_to_none=True)
+    g0, g_rev = grads
+    skip = {n for n in g0 if (g_rev[n] - g0[n]).abs().max()
+            > NOISE_SHARE * g0[n].abs().max()}
+
+    def run(device, ckpt=None, resume_from=None):
+        model = T.build_detector(cfg, device)
+        model.load_state_dict(init)
+        if resume_from is not None:         # other weights: the checkpoint
+            with torch.no_grad():           # must bring them back
+                for p in model.parameters():
+                    p.mul_(0.5)
+        tr = _loop_trainer(T, cfg, model, 112, ckpt, every=1)
+        dev_batches = [T.batch_to(b, device) for b in batches]
+        reset_counts()
+        hist = tr.fit(dev_batches[resume_from or 0:])
+        return tr, hist, dict(A.LAUNCHES)
+
+    res = {d: run(d, tmp / f"loop_ref_{d}") for d in ("cpu", "cuda")}
+    p_c = {n: p.detach().cpu() for n, p in res["cpu"][0].state.model
+           .named_parameters()}
+
+    def param_err(model):
+        err, compared = 0.0, 0
+        for n, p in model.named_parameters():
+            if n in skip:
+                continue
+            sel = g0[n].abs() > 1e-5
+            compared += int(sel.sum())
+            if sel.any():
+                d = (p.detach().cpu() - p_c[n]).abs()[sel].max().item()
+                err = max(err, d / max(1.0, p_c[n].abs().max().item()))
+        return err, compared
+    p_err, compared = param_err(res["cuda"][0].state.model)
+    loss_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in
+                   zip(res["cuda"][1]["loss"], res["cpu"][1]["loss"]))
+    per_step = {"flash_fwd_single_tile_lse": 1, "flash_bwd_single_tile": 1,
+                "flash_fwd_lse": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    want = {k: 4 * v for k, v in per_step.items()}
+    # resumes on the card from micro-step 2 and 3 against the whole run
+    card = {n: p.detach() for n, p in res["cuda"][0].state.model
+            .named_parameters()}
+    resume = {}
+    for k in (2, 3):
+        d = tmp / f"loop_ref_resume{k}"
+        d.mkdir(exist_ok=True)
+        for f in (tmp / "loop_ref_cuda").glob(f"step_{k:08d}*"):
+            shutil.copy(f, d / f.name)
+        tr, hist, _ = run("cuda", d, resume_from=k)
+        resume[k] = max(((p.detach() - card[n]).abs().max()
+                         / max(1.0, card[n].abs().max().item())).item()
+                        for n, p in tr.state.model.named_parameters())
+        if tr.state.step != 4 or [s for s, _ in hist["loss"]] != list(
+                range(k + 1, 5)):
+            fail(f"train_loop_ref: the resume from {k} ran {hist['loss']}")
+    # the semi-supervised step
+    semi = {}
+    for d in ("cpu", "cuda"):
+        st = semi_models(d, 32, (3, 3), dropout=0.0)
+        losses = []
+        for i in range(4):
+            st, loss = SS.semi_supervised_step(
+                st.pose, st.traj, st.optimizer, st,
+                *semi_batch(st.pose.rf, 8, 40 + i, d), warmup=i < 2)
+            losses.append(float(loss))
+        semi[d] = (losses, [{k: v.detach().cpu() for k, v in
+                             m.state_dict().items()} for m in (st.pose,
+                                                               st.traj)])
+    semi_err = max(scaled_err(semi["cuda"][1][i][k], semi["cpu"][1][i][k])
+                   for i in (0, 1) for k in semi["cpu"][1][i])
+    semi_loss = max(abs(a - b) / abs(b) for a, b in zip(semi["cuda"][0],
+                                                         semi["cpu"][0]))
+    # the association losses on collated clips
+    ds = VideoDataset(write_ytvis(tmp / "ytvis_ref", 6, (64, 96), 3, 6))
+    rng = np.random.default_rng(0)
+    batch = collate_clips([ds.sample_clip(0, rng, num_frames=3)
+                           for _ in range(2)], max_objects=5)
+    inputs = assoc_inputs(batch, 1)
+    a_c, a_g = assoc_losses(inputs, "cpu"), assoc_losses(inputs, "cuda")
+    assoc_err = max(float((x - y).abs().max()) for x, y in zip(a_g, a_c))
+    say("train_loop_ref", micro_steps=4, accum=2, loss_rel=loss_rel,
+        param_err=p_err, params_compared=compared,
+        noise_leaves_skipped=len(skip), resume_err_2=resume[2],
+        resume_err_3=resume[3], semi_param_err=semi_err,
+        semi_loss_rel=semi_loss, assoc_err=assoc_err,
+        assoc=[round(float(x), 6) for x in a_c[:3]],
+        launches=json.dumps(res["cuda"][2]).replace(" ", ""),
+        s=round(time.perf_counter() - t0, 1))
+    lim = TRAIN_LOOP_REF_LIMITS
+    if res["cuda"][2] != want:
+        fail(f"train_loop_ref: launches {res['cuda'][2]}, expected {want}")
+    if not (loss_rel <= lim["loss_rel"] and p_err <= lim["params"]
+            and max(resume.values()) <= lim["params"]
+            and semi_err <= lim["params"] and semi_loss <= lim["loss_rel"]
+            and assoc_err <= lim["assoc"]):
+        fail(f"train_loop_ref: card and CPU disagree (loss {loss_rel}, "
+             f"params {p_err}, resume {resume}, semi {semi_err}/{semi_loss}, "
+             f"assoc {assoc_err})")
+
+
+def train_loop_phase(tmp: Path):
+    """The library training parts at full size: the Trainer over the
+    full-size detector's loss (configs/train_detector.yaml, batch
+    TRAIN_LOOP_BATCH × grad_accum_steps TRAIN_LOOP_ACCUM, tx =
+    construct_optimizer): one optimizer step of warm-up, then
+    TRAIN_LOOP_STEPS through ``fit`` with the launch counts from 0, each
+    micro-step's launches those of a [train] step; ms a micro-step and an
+    optimizer step, peak memory, one optimizer step profiled. No
+    checkpoint at this size (the ``_ref`` phase checks save and resume).
+    The semi-supervised step at the published lifter width and batch
+    (dropout 0.25 from a card generator), warm-up and full objective; YTVIS
+    clips of 1080p collated on the host and both association losses on
+    the card."""
+    import numpy as np
+    import torch
+
+    from skix_torch.config import load_config
+    from skix_torch.data import (CocoDataset, CocoLoader, VideoDataset,
+                                 collate_clips)
+    from skix_torch.models import semi_supervised as SS
+    from skix_torch.ops import attention as A
+    from skix_torch.pipelines import train_detector as T
+
+    t0 = time.perf_counter()
+    root, argv = _train_argv(tmp)
+    if not (root / "coco.json").exists():
+        write_coco(root, TRAIN_IMAGES, TRAIN_HW, seed=4)
+    cfg = load_config("train_detector", argv + [
+        f"batch_size={TRAIN_LOOP_BATCH}"]).to_dict()
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = T.build_detector(cfg, dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    size = model.img_size
+    loader = CocoLoader(
+        CocoDataset(root / "coco.json", image_root=root),
+        batch_size=TRAIN_LOOP_BATCH, image_size=size,
+        max_objects=int(cfg["max_objects"]),
+        mask_stride=int(cfg["mask_stride"]), augment=bool(cfg["augment"]),
+        scale_range=tuple(cfg["scale_range"]), seed=int(cfg["seed"]))
+    it = iter(loader)
+    n_micro = TRAIN_LOOP_ACCUM * (1 + TRAIN_LOOP_STEPS)
+    batches = [T.batch_to(next(it), dev) for _ in range(n_micro)]
+    tr = _loop_trainer(T, cfg, model, size, accum=TRAIN_LOOP_ACCUM,
+                       max_steps=n_micro, total_steps=int(cfg["steps"]))
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ticks = []
+
+    def timed(bs):
+        """The batches, the clock read (synchronized) before each and
+        after the last: the micro-steps' times."""
+        for b in bs:
+            torch.cuda.synchronize()
+            ticks.append(time.perf_counter())
+            yield b
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter())
+
+    warm = TRAIN_LOOP_ACCUM
+    for b in batches[:warm]:                   # one optimizer step
+        tr._step(b, None)
+    torch.cuda.synchronize()
+    reset_counts()
+    hist = tr.fit(timed(batches[warm:]))
+    launches, by_style = dict(A.LAUNCHES), dict(A.LAUNCHES_BY_STYLE)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    micro_ms = list(np.diff(ticks) * 1e3)
+    n = TRAIN_LOOP_ACCUM * TRAIN_LOOP_STEPS
+    expected = {k: n * v for k, v in TRAIN_PER_STEP.items()}
+    losses = [v for _, v in hist["loss"]]
+    if launches != expected or len(micro_ms) != n or not all(
+            math.isfinite(v) for v in losses):
+        fail(f"train_loop: {len(micro_ms)} micro-steps launched {launches}, "
+             f"expected {expected}; losses {losses}")
+    if (tr.optimizer.gradient_step != 1 + TRAIN_LOOP_STEPS
+            or tr.state.step != n_micro):
+        fail(f"train_loop: {tr.optimizer.gradient_step} updates in "
+             f"{tr.state.step} micro-steps")
+    steps_ms = [sum(micro_ms[i:i + TRAIN_LOOP_ACCUM])
+                for i in range(0, n, TRAIN_LOOP_ACCUM)]
+    prof = _profiled(lambda: [tr._step(b, None) for b in batches[:warm]])
+    say("train_loop", batch=TRAIN_LOOP_BATCH, accum=TRAIN_LOOP_ACCUM,
+        micro_steps=n, optimizer_steps=TRAIN_LOOP_STEPS,
+        ms_per_micro_step=round(float(np.mean(micro_ms)), 1),
+        micro_ms=json.dumps([round(v, 1) for v in micro_ms]).replace(" ", ""),
+        ms_per_optimizer_step=round(float(np.mean(steps_ms)), 1),
+        peak_mem_gib=round(peak_gib, 2), losses=json.dumps(
+            [round(v, 4) for v in losses]).replace(" ", ""),
+        profiled_optimizer_step_ms=round(prof[0], 1),
+        device_busy_ms=round(prof[1], 1), device_idle_share=round(prof[2], 4),
+        top=prof[3], setup_s=round(setup_s, 1),
+        launches=json.dumps(launches).replace(" ", ""),
+        s=round(time.perf_counter() - t0, 1))
+    del tr, model, batches, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the semi-supervised step at the published width and batch
+    t1 = time.perf_counter()
+    st = semi_models(dev, 1024, (3, 3, 3, 3, 3))
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    data = [semi_batch(st.pose.rf, SEMI_BATCH, i, dev) for i in range(2)]
+    semi_ms = {}
+    for warmup in (True, False):
+        st, _ = SS.semi_supervised_step(st.pose, st.traj, st.optimizer, st,
+                                        *data[0], gen, warmup=warmup)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(SEMI_STEPS):
+            st, loss = SS.semi_supervised_step(
+                st.pose, st.traj, st.optimizer, st, *data[1], gen,
+                warmup=warmup)
+        torch.cuda.synchronize()
+        semi_ms[warmup] = (time.perf_counter() - t) * 1e3 / SEMI_STEPS
+        if not math.isfinite(float(loss)):
+            fail(f"semi: a non-finite loss ({'warm-up' if warmup else 'full'})")
+    say("semi_step", rf=st.pose.rf, channels=st.pose.expand_conv.out_channels,
+        batch=SEMI_BATCH,
+        warmup_ms_per_step=round(semi_ms[True], 2),
+        full_ms_per_step=round(semi_ms[False], 2), last_loss=float(loss),
+        s=round(time.perf_counter() - t1, 1))
+    del st, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # YTVIS clips of 1080p, collated on the host; both association losses
+    t1 = time.perf_counter()
+    ds = VideoDataset(write_ytvis(tmp / "ytvis", CLIPS_T, CLIPS_HW,
+                                  CLIPS_OBJECTS, seed=7))
+    write_s = time.perf_counter() - t1
+    rng = np.random.default_rng(0)
+    t = time.perf_counter()
+    clips = [ds.sample_clip(0, rng, num_frames=4) for _ in range(2)]
+    load_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    batch = collate_clips(clips, max_objects=16)
+    collate_ms = (time.perf_counter() - t) * 1e3
+    if (batch["masks"].shape != (2, 4, 16, *CLIPS_HW)
+            or int(batch["valid"].sum()) == 0):
+        fail(f"clips: collated masks {batch['masks'].shape}")
+    inputs = assoc_inputs(batch, 2)
+    assoc_losses(inputs, dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = assoc_losses(inputs, dev)
+    torch.cuda.synchronize()
+    assoc_ms = (time.perf_counter() - t) * 1e3
+    if not all(torch.isfinite(x).all() for x in out):
+        fail("clips: non-finite association losses")
+    say("clips", frames=CLIPS_T, hw=list(CLIPS_HW), masklets=CLIPS_OBJECTS,
+        write_s=round(write_s, 2), clip_load_ms=round(load_ms, 1),
+        collate_ms=round(collate_ms, 1),
+        valid_slots=int(batch["valid"].sum()),
+        assoc_ms=round(assoc_ms, 3),
+        assoc=[round(float(x), 5) for x in out[:3]],
+        s=round(time.perf_counter() - t1, 1))
+    return launches, by_style
+
+
 GROUPS = ("kernels", "vggt", "front", "chain", "side", "vggt_cli", "prep",
           "views", "image_edit", "train", "train_cli", "tools",
-          "vos", "prompts")
+          "vos", "prompts", "agent", "train_loop")
 
 
 def main() -> int:
     # ``--only a,b``: a partial run of these phase groups (GROUPS; "train"
     # needs "front", whose sam3 checkpoints it starts from; "train_cli",
-    # "tools", "vos" and "prompts" need none) after the build,
-    # with no kernels line and no verdict. Without arguments every group
+    # "tools", "vos", "prompts", "agent" and "train_loop" need none) after
+    # the build, with no kernels line and no verdict. Without arguments every group
     # runs, as the verdict needs.
     only = None
     if len(sys.argv) > 1:
@@ -7306,6 +8096,17 @@ def main() -> int:
             # trained fixture card against CPU; then at full width
             prompts_reference_phase()
             paths["prompts"] = prompts_phase()
+        if want("agent"):
+            # 9g. the SAM3 agent: agent_inference on the trained fixture
+            # card against CPU; then over the full-size detector
+            agent_reference_phase()
+            paths["agent"] = agent_phase()
+        if want("train_loop"):
+            # 9h. the library training parts: the Trainer, the
+            # semi-supervised step and the association losses tiny, card
+            # against CPU (with save and resume); then at full size
+            train_loop_reference_phase(tmp)
+            paths["train_loop"] = train_loop_phase(tmp)
 
     if only is not None:
         say("only", groups=",".join(sorted(only)),

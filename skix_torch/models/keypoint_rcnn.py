@@ -1,6 +1,8 @@
 """Keypoint R-CNN (ResNet-50 FPN): the D2-slot 2D keypoint source.
 
-Port of ``skix/models/keypoint_rcnn.py``'s inference path. Every
+Port of ``skix/models/keypoint_rcnn.py``: the inference path and the two
+heads' training losses (:func:`keypoint_head_loss`, :func:`box_head_loss`).
+Every
 data-dependent quantity is a fixed slot count, as in skix:
 
 - proposals: per FPN level the top ``pre_nms_topk`` objectness logits
@@ -18,8 +20,7 @@ data-dependent quantity is a fixed slot count, as in skix:
 
 FrozenBatchNorm keeps its four arrays as parameters (``weight``, ``bias``,
 ``running_mean``, ``running_var``), so a skix checkpoint loads leaf for
-leaf. The detectron2 converter returns the port's ``state_dict``. The
-training losses wait for the training slice.
+leaf. The detectron2 converter returns the port's ``state_dict``.
 """
 
 from __future__ import annotations
@@ -405,6 +406,49 @@ def decode_keypoint_heatmaps(heat, boxes):
     y = boxes[:, 1][:, None] + py / S * h
     p = torch.gather(prob, -1, idx[..., None])[..., 0]
     return torch.stack([x, y, p], -1)
+
+
+def keypoint_head_loss(heat, boxes, gt_kpts, valid):
+    """Spatial-softmax CE at the GT keypoint's bin (detectron2
+    keypoint_rcnn_loss). heat (B, N, S, S, 17); boxes/gt in pixels; the
+    mean over the keypoints inside their box, visible, in a valid slot."""
+    B, N, S, _, K = heat.shape
+    w = torch.clamp(boxes[..., 2] - boxes[..., 0], min=1e-6)
+    h = torch.clamp(boxes[..., 3] - boxes[..., 1], min=1e-6)
+    gx = (gt_kpts[..., 0] - boxes[..., 0][..., None]) / w[..., None] * S
+    gy = (gt_kpts[..., 1] - boxes[..., 1][..., None]) / h[..., None] * S
+    inside = ((gx >= 0) & (gx < S) & (gy >= 0) & (gy < S)
+              & (gt_kpts[..., 2] > 0) & valid[..., None])
+    xi = torch.clamp(gx.to(torch.int64), 0, S - 1)
+    yi = torch.clamp(gy.to(torch.int64), 0, S - 1)
+    flat = heat.permute(0, 1, 4, 2, 3).reshape(B, N, K, S * S)
+    logp = torch.log_softmax(flat, -1)
+    ce = -torch.gather(logp, -1, (yi * S + xi)[..., None])[..., 0]
+    denom = torch.clamp(inside.sum(), min=1)
+    return torch.where(inside, ce, torch.zeros_like(ce)).sum() / denom
+
+
+def box_head_loss(scores, deltas, proposals, gt_boxes, valid):
+    """Softmax CE (person vs background on padded slots) + smooth-L1 on
+    the regression deltas for valid slots."""
+    labels = torch.where(valid, 0, 1)                   # 0=person, 1=bg
+    ce = -torch.gather(torch.log_softmax(scores, -1), -1,
+                       labels[..., None])[..., 0].mean()
+    wx, wy, ww, wh = BBOX_REG_WEIGHTS
+    pw = torch.clamp(proposals[..., 2] - proposals[..., 0], min=1e-6)
+    ph = torch.clamp(proposals[..., 3] - proposals[..., 1], min=1e-6)
+    px = (proposals[..., 0] + proposals[..., 2]) / 2
+    py = (proposals[..., 1] + proposals[..., 3]) / 2
+    gw = torch.clamp(gt_boxes[..., 2] - gt_boxes[..., 0], min=1e-6)
+    gh = torch.clamp(gt_boxes[..., 3] - gt_boxes[..., 1], min=1e-6)
+    gx = (gt_boxes[..., 0] + gt_boxes[..., 2]) / 2
+    gy = (gt_boxes[..., 1] + gt_boxes[..., 3]) / 2
+    tgt = torch.stack([wx * (gx - px) / pw, wy * (gy - py) / ph,
+                       ww * torch.log(gw / pw), wh * torch.log(gh / ph)], -1)
+    d = torch.abs(deltas - tgt)
+    sl1 = torch.where(d < 1.0, 0.5 * d * d, d - 0.5).sum(-1)
+    denom = torch.clamp(valid.sum(), min=1)
+    return ce + torch.where(valid, sl1, torch.zeros_like(sl1)).sum() / denom
 
 
 # ---------------------------------------------------------------------------

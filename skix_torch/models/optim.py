@@ -223,7 +223,32 @@ def _apply_layer_decay(lr_resolved, all_paths, ld: LayerDecay):
 # --------------------------------------------------------------------------
 # the optimizer
 # --------------------------------------------------------------------------
-class ClippedAdamW:
+class _AdamMoments:
+    """``state()``/``load_state()`` of an optimizer holding ``params``, a
+    torch Adam or AdamW ``opt`` over them and the update ``count``: the
+    first and second moments by parameter and the count, the parts of
+    optax's ``ScaleByAdamState``."""
+
+    def state(self) -> tuple[list, list]:
+        """``(mu, nu)``: per parameter, in order, its moments (zeros before
+        the first update)."""
+        mu, nu = [], []
+        for p in self.params:
+            st = self.opt.state.get(p, {})
+            mu.append(st.get("exp_avg", torch.zeros_like(p)).detach())
+            nu.append(st.get("exp_avg_sq", torch.zeros_like(p)).detach())
+        return mu, nu
+
+    def load_state(self, mu, nu, count: int) -> None:
+        self.count = int(count)
+        for p, m, v in zip(self.params, mu, nu):
+            self.opt.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": torch.as_tensor(m, dtype=p.dtype).to(p.device),
+                "exp_avg_sq": torch.as_tensor(v, dtype=p.dtype).to(p.device)}
+
+
+class ClippedAdamW(_AdamMoments):
     """optax's ``chain(clip_by_global_norm(clip), <per-group AdamW>)`` on
     torch parameters, with optax's (and torch's) default betas and eps.
     ``groups``: dicts with ``params``, ``lr`` and ``weight_decay`` (each a
@@ -286,12 +311,10 @@ def construct_optimizer(named_params,
     return opt, groups
 
 
-class ScheduledAdam:
+class ScheduledAdam(_AdamMoments):
     """``optax.adam(schedule, eps=eps)`` on torch parameters (the lifter's
     optimizer): the learning rate of each update is the schedule at the
-    update count before it. ``state()``/``load_state()`` give and take the
-    first and second moments by parameter and the count, the parts of
-    optax's ``ScaleByAdamState``."""
+    update count before it."""
 
     def __init__(self, params, schedule: ScheduleLike, eps: float = 1e-8):
         self.params = list(params)
@@ -312,20 +335,3 @@ class ScheduledAdam:
         self.opt.step()
         self.count += 1
 
-    def state(self) -> tuple[list, list]:
-        """``(mu, nu)``: per parameter, in order, its moments (zeros before
-        the first update)."""
-        mu, nu = [], []
-        for p in self.params:
-            st = self.opt.state.get(p, {})
-            mu.append(st.get("exp_avg", torch.zeros_like(p)).detach())
-            nu.append(st.get("exp_avg_sq", torch.zeros_like(p)).detach())
-        return mu, nu
-
-    def load_state(self, mu, nu, count: int) -> None:
-        self.count = int(count)
-        for p, m, v in zip(self.params, mu, nu):
-            self.opt.state[p] = {
-                "step": torch.tensor(float(count)),
-                "exp_avg": torch.as_tensor(m, dtype=p.dtype).to(p.device),
-                "exp_avg_sq": torch.as_tensor(v, dtype=p.dtype).to(p.device)}

@@ -4,7 +4,8 @@ Port of ``skix/tracking/matcher.py``: box helpers, the DETR matching cost,
 the greedy assignment (one-to-one, and one-to-many with ``repeats`` for
 the DAC o2m queries), the focal / IoU-aware BCE / presence / dice losses,
 ``detection_loss``, ``sam3_detection_loss`` and ``sam3_mask_loss`` on the
-full grid and on PointRend's sampled points. skix maps its per-image
+full grid and on PointRend's sampled points, and the video association
+losses (``det2trk_assoc_loss``, ``tracking_by_detection_assoc_loss``). skix maps its per-image
 functions over the batch with ``jax.vmap``; here every function takes
 leading batch axes, and the aux layers of the decoder ride the same batched
 call.
@@ -334,6 +335,102 @@ def presence_loss(presence_logit, gt_boxes, gt_valid, alpha: float = 0.5,
     p_t = p * keep + (1 - p) * (1 - keep)
     a_t = alpha * keep + (1 - alpha) * (1 - keep)
     return a_t * ((1 - p_t) ** gamma) * ce, keep
+
+
+def _same_object(ids_a, ids_b):
+    """``(B, Qa, Qb)``: both matched (id ≥ 0) to the same GT object id."""
+    a_m, b_m = ids_a >= 0, ids_b >= 0
+    return (a_m[:, :, None] & b_m[:, None, :]
+            & (ids_a[:, :, None] == ids_b[:, None, :]))
+
+
+def _assoc_labels(same, src_matched, new_label: int):
+    """Per source query: the first target sharing its GT object id (a
+    first-occurrence argmax over ``same (B, Qsrc, Qtgt)``), else
+    ``new_label`` where the source is matched, else −1 (ignored)."""
+    has = same.any(-1)
+    idx = torch.argmax(same.to(torch.uint8), -1)
+    labels = torch.where(has, idx, torch.full_like(idx, -1))
+    return torch.where(src_matched & ~has, torch.full_like(idx, new_label),
+                       labels)
+
+
+def _assoc_ce(logits, labels, frame_has_trk, num_boxes):
+    """Softmax CE of ``logits (B, Q, K)`` at ``labels`` (−1 ignored), zeroed
+    on frames with no valid track, summed over ``B * max(num_boxes, 1)``."""
+    logp = torch.log_softmax(logits, -1)
+    ce = -torch.gather(logp, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+    ce = torch.where(labels >= 0, ce, torch.zeros_like(ce))
+    ce = ce * frame_has_trk.to(ce.dtype)
+    nb = torch.as_tensor(num_boxes, dtype=ce.dtype, device=ce.device)
+    return ce.sum() / (logits.shape[0] * torch.clamp(nb, min=1))
+
+
+def det2trk_assoc_loss(assoc_logits, matched_obj_ids_det,
+                       matched_obj_ids_trk, num_boxes,
+                       det_logits=None, use_fp_loss: bool = False,
+                       treat_fp_as_new_obj: bool = False,
+                       is_exhaustive=None):
+    """Detection→tracking association loss (skix's ``det2trk_assoc_loss``,
+    the reference's ``Det2TrkAssoc.get_loss``, train/loss/loss_fns.py:
+    1153-1226): label = index of the tracking query matched to the same GT
+    object id; else ``Q_trk`` ("new object") when matched to GT but no
+    track; else ``Q_trk + 1`` ("false positive") when unmatched with
+    score > 0 and ``use_fp_loss`` (optionally exhaustive-only / folded into
+    new-object); else −1 (ignored). Softmax CE over ``Q_trk + 2`` classes,
+    zeroed on frames with no valid tracking query, normalized by
+    ``B * max(num_boxes, 1)``.
+
+    ``assoc_logits (B, Q_det, Q_trk+2)``; ``matched_obj_ids_* (B, Q)``
+    int (−1 = unmatched); differentiable in the logits.
+    """
+    Q_trk = assoc_logits.shape[-1] - 2
+    det_m = matched_obj_ids_det >= 0
+    labels = _assoc_labels(_same_object(matched_obj_ids_det,
+                                        matched_obj_ids_trk), det_m, Q_trk)
+    if use_fp_loss:
+        if det_logits is None:
+            raise ValueError("use_fp_loss requires det_logits")
+        fp = ~det_m & (det_logits > 0)
+        if treat_fp_as_new_obj:
+            labels = torch.where(fp, torch.full_like(labels, Q_trk), labels)
+        else:
+            if is_exhaustive is not None:
+                fp = fp & is_exhaustive[:, None]
+            labels = torch.where(fp, torch.full_like(labels, Q_trk + 1),
+                                 labels)
+    frame_has_trk = (matched_obj_ids_trk >= 0).any(-1, keepdim=True)
+    return _assoc_ce(assoc_logits, labels, frame_has_trk, num_boxes)
+
+
+def tracking_by_detection_assoc_loss(assoc_logits, matched_obj_ids_det,
+                                     prev_trk_object_ids, num_boxes):
+    """Bidirectional association loss (skix's
+    ``tracking_by_detection_assoc_loss``, the reference's
+    ``TrackingByDetectionAssoc.get_loss``, train/loss/loss_fns.py:
+    1229-1307). ``assoc_logits (B, Q_det+1, Q_trk+1)``: the last row and
+    column are the "occluded"/"new-object" classes.
+
+    - det→trk: CE over ``Q_trk+1`` on rows ``:-1`` — label = matching
+      track index, ``Q_trk`` ("new object") when GT-matched trackless,
+      −1 ignored;
+    - trk→det: the transposed table, CE over ``Q_det+1`` — label =
+      matching detection index, ``Q_det`` ("occluded") when GT-matched
+      detectionless, −1 ignored;
+    - both gated on frames with ≥1 valid track and normalized by
+      ``B * max(num_boxes, 1)``. Returns ``(loss_det2trk, loss_trk2det)``.
+    """
+    Q_det, Q_trk = assoc_logits.shape[1] - 1, assoc_logits.shape[2] - 1
+    det_m = matched_obj_ids_det >= 0
+    trk_m = prev_trk_object_ids >= 0
+    same = _same_object(matched_obj_ids_det, prev_trk_object_ids)
+    frame_has_trk = trk_m.any(-1, keepdim=True)
+    d2t = _assoc_ce(assoc_logits[:, :-1], _assoc_labels(same, det_m, Q_trk),
+                    frame_has_trk, num_boxes)
+    t2d = _assoc_ce(assoc_logits.transpose(1, 2)[:, :-1],
+                    _assoc_labels(same.transpose(1, 2), trk_m, Q_det),
+                    frame_has_trk, num_boxes)
+    return d2t, t2d
 
 
 class DetrLosses(NamedTuple):

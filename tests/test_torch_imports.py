@@ -1,5 +1,5 @@
 """skix_torch and chip_smoke.py stand on PyTorch alone: no module of them
-imports JAX, flax, optax or the skix package (skix_torch itself is
+imports JAX, flax, optax, orbax or the skix package (skix_torch itself is
 allowed). Checked on the source, with ``ast``, so a lazy import inside a
 function counts too."""
 
@@ -9,7 +9,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "skix")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "skix")
 SOURCES = sorted((ROOT / "skix_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
